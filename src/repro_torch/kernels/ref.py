@@ -1,0 +1,70 @@
+"""Plain PyTorch versions of the attention kernels (reference:
+``repro/kernels/ref.py`` and the kernels' own lse arithmetic).
+
+They are the CPU path of :mod:`repro_torch.kernels.ops` and the oracle the
+CUDA kernels are held against on the card.  Both take GQA K/V natively
+(``Hkv`` divides ``Hq``; the group is expanded here, never by the kernels).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _grouped_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(B, Sq, Hq, hd) x (B, Sk, Hkv, hd) -> (B, Hq, Sq, Sk) float32 logits."""
+    hq, hkv = q.shape[2], k.shape[2]
+    k = k.float().repeat_interleave(hq // hkv, dim=2)
+    return torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / math.sqrt(q.shape[-1])
+
+
+def _grouped_pv(probs: torch.Tensor, v: torch.Tensor, hq: int) -> torch.Tensor:
+    v = v.float().repeat_interleave(hq // v.shape[2], dim=2)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _softmax_lse(logits: torch.Tensor):
+    """Softmax over the last axis of ``-inf``-masked logits, and the row
+    logsumexp, with the kernels' guards: a fully masked row gives 0 (not
+    NaN) and lse = -inf; the denominator is clamped at 1e-30."""
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    s = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return p / s, (m + torch.log(s))[..., 0]
+
+
+def terapipe_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           ctx: int):
+    """Attention of a query slice at absolute offset ``ctx``; returns
+    ``(out, lse)``.
+
+    q: (B, l, Hq, hd); k, v: (B, Sk, Hkv, hd) with Sk >= ctx + l.  Query i
+    (position ctx+i) attends keys [0, ctx+i]; keys at or past ctx + l (a
+    stale cache tail) are excluded.  ``lse`` is (B, Hq, l) float32, the
+    per-row ``m + log(s)`` of ``terapipe_attention.py::_fwd_kernel`` with
+    its denominator clamped at 1e-30.  The probabilities stay float32 into
+    the PV product, as in the kernel.
+    """
+    b, l, hq, hd = q.shape
+    sk = k.shape[1]
+    logits = _grouped_logits(q, k)
+    qp = torch.arange(l, device=q.device)[:, None] + ctx
+    kp = torch.arange(sk, device=q.device)[None, :]
+    mask = (qp >= kp) & (kp < ctx + l)
+    probs, lse = _softmax_lse(logits.masked_fill(~mask, float("-inf")))
+    return _grouped_pv(probs, v, hq).to(q.dtype), lse
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_len) -> torch.Tensor:
+    """Single-token decode: q (B, 1, Hq, hd) over k/v (B, L, Hkv, hd) valid
+    to ``kv_len`` — a python int, a 0-d tensor, or a per-batch (B,) vector.
+    Positions >= kv_len[b] are masked."""
+    b, _, hq, _ = q.shape
+    lmax = k.shape[1]
+    kv_len = torch.as_tensor(kv_len, device=q.device).reshape(-1).expand(b)
+    logits = _grouped_logits(q, k)                              # (B, Hq, 1, L)
+    valid = torch.arange(lmax, device=q.device)[None, :] < kv_len[:, None]
+    probs, _ = _softmax_lse(logits.masked_fill(~valid[:, None, None, :], float("-inf")))
+    return _grouped_pv(probs, v, hq).to(q.dtype)

@@ -1,0 +1,139 @@
+"""GQA attention layer (reference: ``repro/models/attention.py``).
+
+Ported modes: ``sliced`` (a token slice at a static context offset over
+[prefix KV cache ++ this slice]: prefill chunks) and ``decode`` (one new
+token per row against a fixed-capacity cache, at a scalar or a per-row
+position).  ``attn_full``, ``attn_sliced_dyn``, the ring cache and
+cross-attention arrive with the training and family slices.
+
+Caches are updated IN PLACE: the reference returns new arrays, but every
+caller here owns the dense cache it passes (a fresh gather from the paged
+pool, or one ``prefill`` made), so writing into it saves a copy of the
+whole cache per layer.  The functions still return ``(out, (k, v))`` with
+the updated cache, as the reference does.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops as kops
+
+from .common import (ModelConfig, apply_rope, attention_scores_gqa, causal_mask,
+                     dense_init, rms_norm)
+
+
+def init_attn(gen: torch.Generator, cfg: ModelConfig):
+    hd = cfg.hd
+    p = {
+        "wq": dense_init(gen, (cfg.d_model, cfg.n_heads * hd)),
+        "wk": dense_init(gen, (cfg.d_model, cfg.n_kv_heads * hd)),
+        "wv": dense_init(gen, (cfg.d_model, cfg.n_kv_heads * hd)),
+        "wo": dense_init(gen, (cfg.n_heads * hd, cfg.d_model)),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((hd,), dtype=torch.float32, device=gen.device)
+        p["k_norm"] = torch.zeros((hd,), dtype=torch.float32, device=gen.device)
+    return p
+
+
+def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                 rope: bool = True):
+    """Head counts are derived from the weight shapes, not cfg (the
+    reference's manual-TP convention)."""
+    b, s, _ = x.shape
+    hd = cfg.hd
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, -1, hd)
+    k = (x @ p["wk"].to(x.dtype)).reshape(b, s, -1, hd)
+    v = (x @ p["wv"].to(x.dtype)).reshape(b, s, -1, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _out_proj(p, cfg: ModelConfig, out, b, s, dtype):
+    return out.reshape(b, s, -1) @ p["wo"].to(dtype)
+
+
+def attn_sliced(p, cfg: ModelConfig, x_slice: torch.Tensor, kv_cache, ctx_len: int,
+                *, window: int = 0):
+    """Attention of a slice at static context offset ``ctx_len``.
+
+    x_slice : (B, l, D) hidden states of this token slice
+    kv_cache: (k, v) each (B, L_max, kv_heads, hd) — prefix written in [0, ctx_len)
+    Returns (out_slice, kv_cache) with the slice's K/V written at ctx_len.
+    """
+    if window:
+        raise NotImplementedError("windowed attention arrives with the hybrid family")
+    b, l, _ = x_slice.shape
+    positions = (torch.arange(l, device=x_slice.device) + ctx_len)[None, :]
+    q, k, v = _project_qkv(p, cfg, x_slice, positions, rope=cfg.rope_theta > 0)
+    ck, cv = kv_cache
+    ck[:, ctx_len:ctx_len + l] = k.to(ck.dtype)
+    cv[:, ctx_len:ctx_len + l] = v.to(cv.dtype)
+    k_all = ck[:, :ctx_len + l].to(q.dtype)
+    v_all = cv[:, :ctx_len + l].to(q.dtype)
+    if cfg.use_kernel and window == 0:
+        out = kops.terapipe_attention(q, k_all, v_all, ctx_len=ctx_len)
+    else:
+        mask = causal_mask(l, ctx_len + l, q_offset=ctx_len, device=q.device)
+        out = attention_scores_gqa(q, k_all, v_all, mask=mask[None])
+    return _out_proj(p, cfg, out, b, l, x_slice.dtype), (ck, cv)
+
+
+def attn_decode(p, cfg: ModelConfig, x_tok: torch.Tensor, kv_cache, pos,
+                *, window: int = 0):
+    """One-token decode.  x_tok (B, 1, D); ``pos`` a python int or 0-d
+    tensor (current position) OR a per-row (B,) tensor — a continuous-
+    batching round where every slot sits at its own context depth.
+
+    kv_cache: (k, v) each (B, L_max, kv_heads, hd).
+    """
+    if window:
+        raise NotImplementedError("windowed attention arrives with the hybrid family")
+    b = x_tok.shape[0]
+    pos_t = torch.as_tensor(pos, device=x_tok.device)
+    if pos_t.dim() > 0:
+        return _attn_decode_batched(p, cfg, x_tok, kv_cache, pos_t.long(),
+                                    window=window)
+    pos = int(pos_t)
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x_tok.device)
+    q, k, v = _project_qkv(p, cfg, x_tok, positions, rope=cfg.rope_theta > 0)
+    ck, cv = kv_cache
+    lmax = ck.shape[1]
+    ck[:, pos] = k[:, 0].to(ck.dtype)
+    cv[:, pos] = v[:, 0].to(cv.dtype)
+    if cfg.use_kernel and window == 0:
+        out = kops.decode_attention(q, ck.to(q.dtype), cv.to(q.dtype), pos + 1)
+    else:
+        valid = torch.arange(lmax, device=x_tok.device)[None, :] <= pos
+        out = attention_scores_gqa(q, ck.to(q.dtype), cv.to(q.dtype),
+                                   mask=valid[None])              # (1, 1, Lmax)
+    return _out_proj(p, cfg, out, b, 1, x_tok.dtype), (ck, cv)
+
+
+def _attn_decode_batched(p, cfg: ModelConfig, x_tok: torch.Tensor, kv_cache,
+                         pos: torch.Tensor, *, window: int = 0):
+    """attn_decode with a per-row (B,) position vector: each slot writes its
+    token at its OWN cache depth and attends over its own valid prefix.
+    Every op is row-independent, so slot b's output depends only on slot
+    b's inputs — the bit-identity the serving engine's continuous-vs-
+    sequential contract rests on."""
+    b = x_tok.shape[0]
+    positions = pos[:, None]                                   # (B, 1)
+    q, k, v = _project_qkv(p, cfg, x_tok, positions, rope=cfg.rope_theta > 0)
+    ck, cv = kv_cache
+    lmax = ck.shape[1]
+    rows = torch.arange(b, device=x_tok.device)
+    ck[rows, pos] = k[:, 0].to(ck.dtype)
+    cv[rows, pos] = v[:, 0].to(cv.dtype)
+    if cfg.use_kernel and window == 0:
+        out = kops.decode_attention(q, ck.to(q.dtype), cv.to(q.dtype), pos + 1)
+    else:
+        valid = torch.arange(lmax, device=x_tok.device)[None, :] <= positions
+        out = attention_scores_gqa(q, ck.to(q.dtype), cv.to(q.dtype),
+                                   mask=valid[:, None, :])     # (B, 1, Lmax)
+    return _out_proj(p, cfg, out, b, 1, x_tok.dtype), (ck, cv)

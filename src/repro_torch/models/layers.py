@@ -1,0 +1,51 @@
+"""Dense transformer block: pre-RMSNorm attention + SwiGLU FFN (reference:
+``repro/models/layers.py``).  ``dense_block_full`` and the traced-ctx
+variant arrive with the training slice."""
+from __future__ import annotations
+
+import torch
+
+from . import attention as attn_mod
+from .common import ModelConfig, dense_init, rms_norm, swiglu
+
+
+def init_ffn(gen: torch.Generator, cfg: ModelConfig, d_ff: int = 0):
+    d_ff = d_ff or cfg.d_ff
+    return {
+        "w_gate": dense_init(gen, (cfg.d_model, d_ff)),
+        "w_up": dense_init(gen, (cfg.d_model, d_ff)),
+        "w_down": dense_init(gen, (d_ff, cfg.d_model)),
+    }
+
+
+def ffn(p, x: torch.Tensor) -> torch.Tensor:
+    h = swiglu(x @ p["w_gate"].to(x.dtype), x @ p["w_up"].to(x.dtype))
+    return h @ p["w_down"].to(x.dtype)
+
+
+def init_dense_block(gen: torch.Generator, cfg: ModelConfig):
+    zeros = lambda: torch.zeros((cfg.d_model,), dtype=torch.float32, device=gen.device)
+    return {
+        "attn": attn_mod.init_attn(gen, cfg),
+        "ffn": init_ffn(gen, cfg),
+        "ln_attn": zeros(),
+        "ln_ffn": zeros(),
+    }
+
+
+def dense_block_sliced(p, cfg: ModelConfig, x: torch.Tensor, kv_cache, ctx_len: int,
+                       *, window: int = 0):
+    a, kv_cache = attn_mod.attn_sliced(p["attn"], cfg, rms_norm(x, p["ln_attn"]),
+                                       kv_cache, ctx_len, window=window)
+    x = x + a
+    x = x + ffn(p["ffn"], rms_norm(x, p["ln_ffn"]))
+    return x, kv_cache
+
+
+def dense_block_decode(p, cfg: ModelConfig, x: torch.Tensor, kv_cache, pos,
+                       *, window: int = 0):
+    a, kv_cache = attn_mod.attn_decode(p["attn"], cfg, rms_norm(x, p["ln_attn"]),
+                                       kv_cache, pos, window=window)
+    x = x + a
+    x = x + ffn(p["ffn"], rms_norm(x, p["ln_ffn"]))
+    return x, kv_cache

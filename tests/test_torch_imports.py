@@ -1,0 +1,122 @@
+"""The PyTorch port stands alone and never falls back silently.
+
+* no module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports jax,
+  jaxlib or the JAX package, and none calls a finished attention op;
+* every entry point raises when no GPU is present and the caller did not
+  ask for ``device="cpu"``; the kernel wrappers refuse CPU tensors;
+* CPU tensors take the plain path and leave both launch counters at 0.
+"""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels.decode_attention import decode_attention_kernel
+from repro_torch.kernels.terapipe_attention import terapipe_attention_fwd
+from repro_torch.launch import serve as serve_launch
+from repro_torch.models import build_model
+from repro_torch.serve import DecodeEngine, EngineConfig
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+FORBIDDEN_MODULES = {"jax", "jaxlib", "repro"}
+FORBIDDEN_CALLS = {"scaled_dot_product_attention", "flex_attention", "compile"}
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_nothing_of_jax():
+    assert len(PORT_FILES) > 20
+    bad = []
+    for path in PORT_FILES + [ROOT / "chip_smoke.py"]:
+        for mod in _imports(ast.parse(path.read_text())):
+            if mod.split(".")[0] in FORBIDDEN_MODULES:
+                bad.append(f"{path.relative_to(ROOT)}: {mod}")
+    assert not bad, bad
+
+
+def test_port_calls_no_finished_attention_op():
+    """scaled_dot_product_attention / flex_attention / torch.compile are
+    not kernels of this repository (chip_smoke times SDPA only as a
+    yardstick, so it is not scanned here)."""
+    bad = []
+    for path in PORT_FILES:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Attribute) and node.attr in FORBIDDEN_CALLS:
+                bad.append(f"{path.relative_to(ROOT)}:{node.lineno}: {node.attr}")
+    assert not bad, bad
+
+
+def _cpu_tensors(hd=32):
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 4, 4, hd, generator=g)
+    k = torch.randn(1, 8, 2, hd, generator=g)
+    return q, k, k.clone()
+
+
+def test_entry_points_raise_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present: the default device is valid here")
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        build_model(cfg)
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        DecodeEngine(model, model.init(0), EngineConfig())
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        serve_launch.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA GPU"):
+        _build.build_all()
+    q, k, v = _cpu_tensors()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        terapipe_attention_fwd(q, k, v, 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        decode_attention_kernel(q[:, :1], k, v, 3)
+
+
+def test_cpu_tensors_take_the_plain_path_without_launches():
+    terapipe_attention_fwd.launches = 0
+    decode_attention_kernel.launches = 0
+    q, k, v = _cpu_tensors()
+    assert ops.terapipe_attention(q, k, v, ctx_len=3).shape == q.shape
+    assert ops.decode_attention(q[:, :1], k, v, torch.tensor([5])).shape == (1, 1, 4, 32)
+    # the whole serving path on the CPU, kernels routed
+    cfg = get_config("qwen3-0.6b", smoke=True).replace(dtype=torch.float32,
+                                                       use_kernel=True)
+    model = build_model(cfg, device="cpu")
+    eng = DecodeEngine(model, model.init(0),
+                       EngineConfig(max_batch=2, max_len=32, page_size=8,
+                                    n_pages=9, slo_tmax=120.0), device="cpu")
+    rng = np.random.RandomState(0)
+    for n in (9, 12):
+        eng.submit(rng.randint(0, cfg.vocab_size, size=n).tolist(), 3)
+    eng.run()
+    assert len(eng.finished) == 2
+    assert terapipe_attention_fwd.launches == 0
+    assert decode_attention_kernel.launches == 0
+
+
+def test_forward_only_and_unported_surfaces_raise():
+    q, k, v = _cpu_tensors()
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        ops.terapipe_attention(q, k, v, ctx_len=3)
+    with torch.no_grad():
+        ops.terapipe_attention(q, k, v, ctx_len=3)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        get_config("gpt3-1b", smoke=True)
+    with pytest.raises(NotImplementedError, match="--simulate"):
+        serve_launch.main(["--smoke", "--device", "cpu", "--simulate"])
+    model = build_model(get_config("qwen3-0.6b", smoke=True), device="cpu")
+    with pytest.raises(NotImplementedError):
+        model.loss({}, {})
