@@ -4,10 +4,17 @@
 
 Phases (each raises on failure; the script exits non-zero and prints no
 result line):
-  1. build   — compile every CUDA kernel of the serving path from
-               src/repro_torch/kernels/csrc with nvcc (sm_90a);
+  1. build   — compile every CUDA kernel (forward, backward, decode) from
+               src/repro_torch/kernels/csrc with nvcc (sm_90a), one nvcc per
+               source, all at once;
   2. kernels — hold each kernel against its plain PyTorch version on the
-               card, bf16 (atol/rtol 2e-2) and f32 (2e-5), O and lse;
+               card, bf16 (atol/rtol 2e-2) and f32 (2e-5; with logits x30,
+               1e-4 for the forward and 3e-3 for the backward): prefill O
+               and lse, decode O, and the backward's dQ, dK and dV (with
+               exactly zero dK/dV on every stale cache tail), on a grid of
+               serving shapes and at the training step's own shape (B 4,
+               l 2048, Hq = Hkv = 16, hd 128), plus the autograd Function
+               against autograd of the plain op;
   3. serve   — qwen3-0.6b at full width (28 layers, random weights from a
                seeded generator, bf16, use_kernel=True) behind the
                continuous-batching DecodeEngine: 8 requests, once with one
@@ -15,7 +22,14 @@ result line):
                launch counts must equal (prefill chunks x 28) and
                (decode rounds x 28); continuous batching must reproduce the
                sequential engine's tokens;
-  4. times   — each kernel at a main-path shape (CUDA events, median of 30
+  4. train   — gpt3-1b at full width (24 layers, d 2048, bf16, random
+               weights): the loss and every gradient through the kernels
+               against the plain attention path at batch 1 x seq 2048, then
+               5 AdamW steps at batch 4 x seq 2048 through
+               repro_torch.launch.train.main --use-kernel; losses finite
+               and within 1 of ln(vocab); launches must equal the remat
+               formula (2 forward, 1 dQ, 1 dK/dV per layer per step);
+  5. times   — each kernel at a main-path shape (CUDA events, median of 30
                after warm-up, L2 flushed before each launch) beside its
                bound, its plain version and one PyTorch library call.
 
@@ -25,6 +39,7 @@ The line before last is one JSON object {"kernels": [...]}; the last line is
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -38,13 +53,21 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.pipeline import DataPipeline, SyntheticSource  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_kernel  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
-                                     terapipe_attention_ref)
+                                     terapipe_attention_bwd_ref,
+                                     terapipe_attention_dkv_ref,
+                                     terapipe_attention_dq_ref, terapipe_attention_ref)
 from repro_torch.kernels.terapipe_attention import terapipe_attention_fwd  # noqa: E402
+from repro_torch.kernels.terapipe_attention_bwd import (  # noqa: E402
+    terapipe_attention_bwd, terapipe_attention_dkv, terapipe_attention_dq)
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve import DecodeEngine, EngineConfig  # noqa: E402
+from repro_torch.tree import tree_items, tree_leaves  # noqa: E402
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # f32 with logits scaled x30: rounding of |logits| ~ 100 shows in the
@@ -54,6 +77,10 @@ TOL_F32_X30 = 1e-4
 PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12           # H100 SXM HBM3
 N_LAYERS = 28                  # qwen3-0.6b
+COUNTERS = {"terapipe_attention_fwd": terapipe_attention_fwd,
+            "decode_attention": decode_attention_kernel,
+            "terapipe_attention_dq": terapipe_attention_dq,
+            "terapipe_attention_dkv": terapipe_attention_dkv}
 
 
 def log(msg: str) -> None:
@@ -94,14 +121,25 @@ def _err(got, want, tol, what):
     return diff.max().item()
 
 
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 4, 2048
+# one layer's attention in the gpt3-1b training step (Hq = Hkv = 16, hd 128),
+# as the main path calls it (Sk = l) and with a 37-key stale tail
+TRAIN_CASES = [(TRAIN_BATCH, TRAIN_SEQ, 0, 16, 16, 128, 1.0, tail) for tail in (0, 37)]
+
+
 def prefill_cases():
-    """(B, l, ctx, Hq, Hkv, hd, logit_scale); Sk = ctx + l + 37 (stale tail)."""
-    cases = [(1, l, ctx, 16, 8, 128, 1.0)
+    """(B, l, ctx, Hq, Hkv, hd, logit_scale, tail); Sk = ctx + l + tail."""
+    cases = [(1, l, ctx, 16, 8, 128, 1.0, 37)
              for l in (1, 96, 100, 128, 1024) for ctx in (0, 256, 700)]
-    cases += [(2, 100, 256, 16, 8, hd, 1.0) for hd in (32, 96, 160)]
-    cases += [(2, 96, 256, 8, 8, 128, 1.0), (2, 100, 256, 16, 4, 128, 1.0),
-              (2, 100, 256, 16, 8, 128, 30.0)]
+    cases += [(2, 100, 256, 16, 8, hd, 1.0, 37) for hd in (32, 96, 160)]
+    cases += [(2, 96, 256, 8, 8, 128, 1.0, 37), (2, 100, 256, 16, 4, 128, 1.0, 37),
+              (2, 100, 256, 16, 8, 128, 30.0, 37)]
     return cases
+
+
+def fwd_cases():
+    """prefill_cases() plus the training shape, with and without a tail."""
+    return prefill_cases() + TRAIN_CASES
 
 
 def phase_kernels() -> dict:
@@ -109,20 +147,25 @@ def phase_kernels() -> dict:
     errs = {"terapipe_attention_fwd": 0.0, "decode_attention": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         worst = 0.0
-        for (b, l, ctx, hq, hkv, hd, sc) in prefill_cases():
+        for (b, l, ctx, hq, hkv, hd, sc, tail) in fwd_cases():
             tol = TOL_F32_X30 if dtype == torch.float32 and sc > 1 else TOL[dtype]
-            sk = ctx + l + 37
+            sk = ctx + l + tail
             q = _rand((b, l, hq, hd), dtype, gen, sc)
             k = _rand((b, sk, hkv, hd), dtype, gen)
             v = _rand((b, sk, hkv, hd), dtype, gen)
             out, lse = terapipe_attention_fwd(q, k, v, ctx)
             ref_out, ref_lse = terapipe_attention_ref(q, k, v, ctx)
             torch.cuda.synchronize()
-            what = f"prefill {dtype} b={b} l={l} ctx={ctx} hq={hq} hkv={hkv} hd={hd} x{sc}"
-            worst = max(worst, _err(out, ref_out, tol, what + " O"),
-                        _err(lse, ref_lse, tol, what + " lse"))
+            what = (f"prefill {dtype} b={b} l={l} ctx={ctx} hq={hq} hkv={hkv} hd={hd} "
+                    f"x{sc} tail={tail}")
+            e_out = _err(out, ref_out, tol, what + " O")
+            e_lse = _err(lse, ref_lse, tol, what + " lse")
+            worst = max(worst, e_out, e_lse)
+            if b == TRAIN_BATCH and l == TRAIN_SEQ:
+                log(f"[kernels] {what}: max abs err O {e_out:.3g}, lse {e_lse:.3g} (tol {tol})")
+            del out, lse, ref_out, ref_lse
         tol = TOL[dtype]
-        log(f"[kernels] terapipe_attention_fwd {dtype}: {len(prefill_cases())} cases, "
+        log(f"[kernels] terapipe_attention_fwd {dtype}: {len(fwd_cases())} cases, "
             f"max abs err {worst:.3g} (tol {tol}; x30 logits in f32: {TOL_F32_X30})")
         errs["terapipe_attention_fwd"] = max(errs["terapipe_attention_fwd"], worst)
 
@@ -146,6 +189,75 @@ def phase_kernels() -> dict:
         log(f"[kernels] decode_attention {dtype}: {len(dec_cases)} cases, "
             f"max abs err {worst:.3g} (tol {tol})")
         errs["decode_attention"] = max(errs["decode_attention"], worst)
+    return errs
+
+
+def bwd_cases():
+    """prefill_cases() plus a ragged 33-row slice and the training shape,
+    with and without a tail."""
+    return prefill_cases() + [(2, 33, 17, 8, 2, 64, 1.0, 37)] + TRAIN_CASES
+
+
+def _bwd_inputs(b, l, ctx, hq, hkv, hd, sc, dtype, gen, tail=37):
+    """q, k, v, dO, and lse / delta from the forward kernel; Sk = ctx + l + tail."""
+    sk = ctx + l + tail
+    q = _rand((b, l, hq, hd), dtype, gen, sc)
+    k = _rand((b, sk, hkv, hd), dtype, gen)
+    v = _rand((b, sk, hkv, hd), dtype, gen)
+    do = _rand((b, l, hq, hd), dtype, gen)
+    out, lse = terapipe_attention_fwd(q, k, v, ctx)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta
+
+
+def phase_kernels_bwd() -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    errs = {"terapipe_attention_dq": 0.0, "terapipe_attention_dkv": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = dict.fromkeys(errs, 0.0)
+        for (b, l, ctx, hq, hkv, hd, sc, tail) in bwd_cases():
+            # x30 logits in f32: P = exp(s - lse) with |s| ~ 100 carries ~30 times the
+            # relative rounding error of the exponent, and dQ, dK, dV are all built
+            # from P (dK also linear in the x30 q), so they are held at 30 x 1e-4
+            tol = TOL_F32_X30 * sc if dtype == torch.float32 and sc > 1 else TOL[dtype]
+            args = _bwd_inputs(b, l, ctx, hq, hkv, hd, sc, dtype, gen, tail) + (ctx,)
+            dq, dk, dv = terapipe_attention_bwd(*args)
+            rdq, rdk, rdv = terapipe_attention_bwd_ref(*args)
+            torch.cuda.synchronize()
+            what = (f"bwd {dtype} b={b} l={l} ctx={ctx} hq={hq} hkv={hkv} hd={hd} x{sc} "
+                    f"tail={tail}")
+            e = [_err(dq, rdq, tol, what + " dQ"), _err(dk, rdk, tol, what + " dK"),
+                 _err(dv, rdv, tol, what + " dV")]
+            worst["terapipe_attention_dq"] = max(worst["terapipe_attention_dq"], e[0])
+            worst["terapipe_attention_dkv"] = max(worst["terapipe_attention_dkv"], *e[1:])
+            if sc > 1 or (b == TRAIN_BATCH and l == TRAIN_SEQ):
+                log(f"[kernels] {what}: max abs err dQ {e[0]:.3g}, dK {e[1]:.3g}, "
+                    f"dV {e[2]:.3g} (tol {tol})")
+            stale = torch.cat([dk[:, ctx + l:], dv[:, ctx + l:]])
+            if stale.shape[1] != tail or torch.count_nonzero(stale).item():
+                raise AssertionError(f"{what}: dK/dV not exactly zero on the stale tail")
+            del args, dq, dk, dv, rdq, rdk, rdv, stale
+        log(f"[kernels] terapipe_attention_dq / _dkv {dtype}: {len(bwd_cases())} cases, "
+            f"max abs err dQ {worst['terapipe_attention_dq']:.3g}, dK/dV "
+            f"{worst['terapipe_attention_dkv']:.3g} (tol {TOL[dtype]}; x30 logits in "
+            f"f32: {TOL_F32_X30 * 30:.0e}); stale tails exactly zero")
+        errs = {k: max(errs[k], worst[k]) for k in errs}
+
+    # the autograd Function (kernels both ways, a strided cotangent) against
+    # autograd through the plain forward
+    for dtype in (torch.bfloat16, torch.float32):
+        b, l, ctx, hq, hkv, hd = 2, 100, 256, 16, 4, 128
+        q = _rand((b, l, hq, hd), dtype, gen).requires_grad_(True)
+        k = _rand((b, ctx + l + 37, hkv, hd), dtype, gen).requires_grad_(True)
+        v = _rand((b, ctx + l + 37, hkv, hd), dtype, gen).requires_grad_(True)
+        g = _rand((b, hq, l, hd), dtype, gen).transpose(1, 2)
+        got = torch.autograd.grad(ops.terapipe_attention(q, k, v, ctx_len=ctx), (q, k, v), g)
+        want = torch.autograd.grad(terapipe_attention_ref(q, k, v, ctx)[0], (q, k, v), g)
+        torch.cuda.synchronize()
+        worst = max(_err(a, w, TOL[dtype], f"autograd {dtype} {name}")
+                    for a, w, name in zip(got, want, "qkv"))
+        log(f"[kernels] ops.terapipe_attention under autograd.grad vs autograd of the "
+            f"plain op, {dtype}: max abs err {worst:.3g} (tol {TOL[dtype]})")
     return errs
 
 
@@ -240,7 +352,7 @@ def phase_serve() -> dict:
     model = build_model(cfg)
     params = model.init(seed=0)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     log(f"[serve] qwen3-0.6b FULL: {n_params / 1e6:.1f} M parameters (f32), "
         f"random init in {time.time() - t0:.1f} s")
     _check_against_plain(model, params)
@@ -263,15 +375,118 @@ def phase_serve() -> dict:
     return total
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+# --------------------------------------------------------------- 4. train
+# The kernel path against the plain attention path at full width (bf16, 24
+# layers), both held against the plain path in float32.  Everything but the
+# attention core is computed alike; the plain bf16 path rounds the
+# probabilities to bf16 before P.V and differentiates that, the kernels keep
+# P in f32 and rebuild it from lse.  Those ~2^-9 relative differences pass
+# through 24 residual layers of bf16 activations and their bf16 gradients,
+# which moves every gradient leaf by a few percent (measured, PERF.md) while
+# the loss agrees to ~1e-5.  So the kernels must be no farther from the f32
+# gradients than the plain bf16 path is (within GRAD_F32_RATIO, for the
+# noise of the comparison), and agree with it on the loss; an error of the
+# kernels themselves (a dropped term, a wrong mask) moves either by O(1).
+LOSS_REL_BOUND = 1e-3
+GRAD_F32_RATIO = 1.5
 
 
-# --------------------------------------------------------------- 4. times
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _check_train_against_plain(cfg) -> int:
+    """One loss and all its gradients at batch 1 x seq 2048 from one seeded
+    init: through the kernels, through the plain attention path, and through
+    the plain path in float32.  Returns the number of parameters."""
+    variants = {"kernel": cfg.replace(use_kernel=True), "plain": cfg.replace(use_kernel=False),
+                "plain f32": cfg.replace(use_kernel=False, dtype=torch.float32)}
+    models = {name: build_model(c) for name, c in variants.items()}
+    params = models["kernel"].init(seed=0)
+    named = list(tree_items(params))
+    for _, p in named:
+        p.requires_grad_(True)
+    toks = DataPipeline(SyntheticSource(cfg.vocab_size, 1), 1, TRAIN_SEQ).batch_at(0)
+    batch = {k: torch.from_numpy(a).cuda() for k, a in toks.items()}
+    out = {}
+    for name, m in models.items():
+        loss = m.loss(params, batch)
+        out[name] = (loss.detach(), torch.autograd.grad(loss, [p for _, p in named]))
+    (lk, gk), (lp, gp), (l32, g32) = out["kernel"], out["plain"], out["plain f32"]
+    if not (torch.isfinite(lk) and all(torch.isfinite(g).all() for g in gk)):
+        raise AssertionError("train: non-finite loss or gradients through the kernels")
+    rel_loss = ((lk - lp).abs() / lp.abs()).item()
+    vs_plain = [_rel(a, b) for a, b in zip(gk, gp)]
+    k32 = [_rel(a, b) for a, b in zip(gk, g32)]
+    p32 = [_rel(a, b) for a, b in zip(gp, g32)]
+    wk, wp = max(k32), max(p32)
+    log(f"[train] gpt3-1b FULL, batch 1 x seq {TRAIN_SEQ}: loss kernels {lk.item():.6f}, "
+        f"plain {lp.item():.6f}, plain f32 {l32.item():.6f} (kernels vs plain relative "
+        f"{rel_loss:.3g}, bound {LOSS_REL_BOUND})")
+    log(f"[train] per-leaf |g - g_f32| / |g_f32| over {len(named)} leaves: kernels worst "
+        f"{wk:.3g} ({named[k32.index(wk)][0]}), median {statistics.median(k32):.3g}; plain "
+        f"bf16 worst {wp:.3g} ({named[p32.index(wp)][0]}), median "
+        f"{statistics.median(p32):.3g}; kernels vs plain bf16 worst {max(vs_plain):.3g} "
+        f"(bound: kernels worst <= {GRAD_F32_RATIO} x plain worst)")
+    if rel_loss > LOSS_REL_BOUND or wk > GRAD_F32_RATIO * wp:
+        raise AssertionError("train: the kernel path is off the plain path beyond the bounds")
+    return sum(p.numel() for _, p in named)
+
+
+def phase_train():
+    """gpt3-1b at full width: kernels vs plain, then TRAIN_STEPS steps of
+    repro_torch.launch.train.main --use-kernel.  Returns the launches of the
+    main run and its metrics."""
+    cfg = get_config("gpt3-1b")
+    if (cfg.n_layers, cfg.d_model, cfg.hd, cfg.dtype, cfg.remat) != (
+            24, 2048, 128, torch.bfloat16, True):
+        raise AssertionError(f"gpt3-1b FULL changed: {cfg}")
+    torch.cuda.empty_cache()
+    n_params = _check_train_against_plain(cfg)
+    torch.cuda.empty_cache()
+
+    argv = ["--arch", "gpt3-1b", "--use-kernel", "--steps", str(TRAIN_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
+            "--seed", "0"]
+    log(f"[train] python -m repro_torch.launch.train {' '.join(argv)}")
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    history = []
+    final = train_launch.main(argv, history=history)
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in COUNTERS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    losses = [r["loss"] for r in history]
+    ln_v = math.log(cfg.vocab_size)
+    if len(losses) != TRAIN_STEPS or not all(abs(x - ln_v) <= 1.0 for x in losses):
+        raise AssertionError(f"train: losses {losses} not {TRAIN_STEPS} finite values "
+                             f"within 1 of ln V = {ln_v:.4f}")
+    if final != losses[-1]:
+        raise AssertionError(f"train: main returned {final}, last logged {losses[-1]}")
+    # remat: each layer's forward runs again in the backward (non-reentrant
+    # checkpoint), so 2 forward launches per layer per step; 1 dQ and 1 dK/dV
+    per_step = {"terapipe_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
+                "decode_attention": 0, "terapipe_attention_dq": cfg.n_layers,
+                "terapipe_attention_dkv": cfg.n_layers}
+    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"train: launches {counts} != {want}")
+    step_ms = statistics.median(r["ms_per_step"] for r in history[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    metrics = {"step_ms": step_ms, "tok_s": tokens / step_ms * 1e3,
+               "peak_gib": peak_gb, "n_params": n_params,
+               "mfu": 6 * n_params * tokens / (step_ms / 1e3) / PEAK_BF16_FLOPS}
+    log(f"[train] gpt3-1b FULL ({n_params:,} parameters), {TRAIN_STEPS} steps of batch "
+        f"{TRAIN_BATCH} x seq {TRAIN_SEQ}: losses {losses}; step {step_ms:.1f} ms (median "
+        f"of steps 2-{TRAIN_STEPS}), {metrics['tok_s']:.0f} tok/s, peak allocated "
+        f"{peak_gb:.2f} GiB, mfu {metrics['mfu']:.4f} (6*N*tokens per step / 989 "
+        f"TFLOP/s); launches {counts}")
+    return counts, metrics
+
+
+# --------------------------------------------------------------- 5. times
 def time_ms(fn, iters: int = 30, warmup: int = 5) -> float:
     """Median device time of ``fn`` in ms, L2 flushed before each launch
     (the serving path finds K/V cold: the pool gather ran between uses)."""
@@ -350,10 +565,43 @@ def phase_times(errs: dict, launches: dict) -> list:
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: sdpa(qt, kt, vt, attn_mask=dmask, enable_gqa=True)),
         shape=f"B={b} L={L} kv_len={kv_len} Hq={hq} Hkv={hkv} hd={hd} bf16"))
+    # backward: one layer of the gpt3-1b training step
+    b, l, ctx, hq, hkv, hd = TRAIN_BATCH, TRAIN_SEQ, 0, 16, 16, 128
+    q, k, v, do, lse, delta = _bwd_inputs(b, l, ctx, hq, hkv, hd, 1.0, dt, gen, tail=0)
+    args = (q, k, v, do, lse, delta, ctx)
+    pairs = b * hq * sum(ctx + i + 1 for i in range(l))
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    out = sdpa(qt, kt, vt, is_causal=True)
+    gt = do.transpose(1, 2)
+    library = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+    shape = f"B={b} l={l} ctx={ctx} Hq={hq} Hkv={hkv} hd={hd} bf16"
+    for name, fn, ref, flops, written, line in (
+            ("terapipe_attention_dq", terapipe_attention_dq, terapipe_attention_dq_ref,
+             6 * hd * pairs, (q,), 51),
+            ("terapipe_attention_dkv", terapipe_attention_dkv, terapipe_attention_dkv_ref,
+             8 * hd * pairs, (k, v), 85)):
+        bms, by = bound_ms(flops, nbytes(q, k, v, do, lse, delta, *written))
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/terapipe_attention_bwd.cu",
+            replaces=f"src/repro/kernels/terapipe_attention_bwd.py:{line}",
+            launches=launches[name], max_abs_err=errs[name],
+            ms=time_ms(lambda: fn(*args)), plain_ms=time_ms(lambda: ref(*args)),
+            bound_ms=bms, bound_by=by, library_ms=library, shape=shape))
     for r in rows:
         log(f"[times] {r['name']} ({r['shape']}): kernel {r['ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms")
+    log(f"[times] backward at the training shape: dQ + dK/dV kernels "
+        f"{rows[-2]['ms'] + rows[-1]['ms']:.4f} ms vs SDPA's backward (dQ, dK, dV "
+        f"together, is_causal) {library:.4f} ms")
+    fwd_train = time_ms(lambda: terapipe_attention_fwd(q, k, v, ctx))
+    with torch.no_grad():
+        sdpa_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+    log(f"[times] terapipe_attention_fwd at the training shape ({shape}): kernel "
+        f"{fwd_train:.4f} ms, bound {bound_ms(4 * hd * pairs, nbytes(q, k, v, q, lse))[0]:.4f} "
+        f"ms, SDPA forward {sdpa_fwd:.4f} ms")
     return rows
 
 
@@ -365,7 +613,11 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
     phase_build()
     errs = phase_kernels()
-    launches = phase_serve()
+    errs.update(phase_kernels_bwd())
+    serve_launches = phase_serve()
+    train_launches, _ = phase_train()
+    launches = {k: serve_launches.get(k, 0) + train_launches[k] for k in COUNTERS}
+    log(f"[launches] main paths: serve {serve_launches}, train {train_launches}")
     rows = phase_times(errs, launches)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

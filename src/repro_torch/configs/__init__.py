@@ -16,7 +16,8 @@ ARCHS = [
 ]
 PAPER_ARCHS = ["gpt3-1b", "gpt3-13b", "gpt3-44b", "gpt3-175b"]
 
-_PORTED = {"qwen3-0.6b": "qwen3_0_6b"}
+_PORTED = {"qwen3-0.6b": "qwen3_0_6b", "gpt3-1b": "gpt3", "gpt3-13b": "gpt3",
+           "gpt3-44b": "gpt3", "gpt3-175b": "gpt3"}
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
@@ -25,4 +26,6 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in _PORTED:
         raise NotImplementedError(f"{arch}: not yet ported")
     mod = importlib.import_module(f"repro_torch.configs.{_PORTED[arch]}")
+    if arch.startswith("gpt3"):
+        return (mod.SMOKE if smoke else mod.FULL)[arch]
     return mod.SMOKE if smoke else mod.FULL

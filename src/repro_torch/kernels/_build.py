@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("terapipe_attention_fwd", "decode_attention")
+SOURCES = ("terapipe_attention_fwd", "terapipe_attention_bwd", "decode_attention")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

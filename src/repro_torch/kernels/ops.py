@@ -2,21 +2,43 @@
 signatures and layouts.
 
 Dispatch is by the tensors' device: CPU tensors take the plain PyTorch
-version (:mod:`repro_torch.kernels.ref`), CUDA tensors launch the
-hand-written kernel or raise — there is no fallback from one to the other.
+versions (:mod:`repro_torch.kernels.ref`), CUDA tensors launch the
+hand-written kernels or raise — there is no fallback from one to the other.
 
-``terapipe_attention`` is forward-only in this slice: the reference's
-``custom_vjp`` (``ops.py:34-65``) and its dQ / dK-dV kernels
-(``terapipe_attention_bwd.py``) arrive with the training slice as a
-``torch.autograd.Function``.
+``terapipe_attention`` is a ``torch.autograd.Function``, the counterpart of
+the reference's ``custom_vjp`` (``_make_flash_attention``): the forward
+saves ``(q, k, v, O, lse)``; the backward computes ``delta = rowsum(dO*O)``
+in float32 and runs the dQ and dK/dV kernels (``terapipe_attention_bwd``).
+Neither the (l, ctx+l) probabilities nor a GQA-repeated K/V are saved.
 """
 from __future__ import annotations
 
 import torch
 
 from .decode_attention import decode_attention_kernel
-from .ref import decode_attention_ref, terapipe_attention_ref
+from .ref import decode_attention_ref, terapipe_attention_bwd_ref, terapipe_attention_ref
 from .terapipe_attention import terapipe_attention_fwd
+from .terapipe_attention_bwd import terapipe_attention_bwd
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, q, k, v, ctx: int):
+        fwd = terapipe_attention_ref if q.device.type == "cpu" else terapipe_attention_fwd
+        out, lse = fwd(q, k, v, ctx)
+        fctx.save_for_backward(q, k, v, out, lse)
+        fctx.offset = ctx
+        return out
+
+    @staticmethod
+    def backward(fctx, g):
+        q, k, v, out, lse = fctx.saved_tensors
+        # autograd may hand over a strided or expanded cotangent
+        do = g.to(q.dtype).contiguous()
+        delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        bwd = terapipe_attention_bwd_ref if q.device.type == "cpu" else terapipe_attention_bwd
+        dq, dk, dv = bwd(q, k, v, do, lse, delta, fctx.offset)
+        return dq, dk, dv, None
 
 
 def terapipe_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -24,17 +46,11 @@ def terapipe_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Flash attention of a query slice at context offset ``ctx_len``.
 
     q: (B, l, Hq, hd); k/v: (B, Sk, Hkv, hd) with Sk >= ctx_len + l; GQA
-    resolved inside the kernel (no K/V repeat).  ``ctx_len`` is a python
-    int (or a 0-d tensor, read once on the host).
+    resolved inside the kernels (no K/V repeat).  ``ctx_len`` is a python
+    int (or a 0-d tensor, read once on the host).  Differentiable in q, k
+    and v through the flash backward kernels.
     """
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "terapipe_attention is forward-only until the training slice "
-            "ports the dQ and dK/dV kernels (terapipe_attention_bwd.py)")
-    ctx = int(ctx_len)
-    if q.device.type == "cpu":
-        return terapipe_attention_ref(q, k, v, ctx)[0]
-    return terapipe_attention_fwd(q, k, v, ctx)[0]
+    return _FlashAttention.apply(q, k, v, int(ctx_len))
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -2,7 +2,7 @@
 ``repro/kernels/ref.py`` and the kernels' own lse arithmetic).
 
 They are the CPU path of :mod:`repro_torch.kernels.ops` and the oracle the
-CUDA kernels are held against on the card.  Both take GQA K/V natively
+CUDA kernels are held against on the card.  All take GQA K/V natively
 (``Hkv`` divides ``Hq``; the group is expanded here, never by the kernels).
 """
 from __future__ import annotations
@@ -54,6 +54,67 @@ def terapipe_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = (qp >= kp) & (kp < ctx + l)
     probs, lse = _softmax_lse(logits.masked_fill(~mask, float("-inf")))
     return _grouped_pv(probs, v, hq).to(q.dtype), lse
+
+
+def _bwd_probs(q, k, v, do, lse, delta, ctx: int):
+    """P and dS of the backward, (B, Hkv, rep, l, Sk) float32, and the
+    grouped float32 operands."""
+    b, l, hq, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    qg = q.float().reshape(b, l, hkv, rep, hd)
+    dog = do.float().reshape(b, l, hkv, rep, hd)
+    kf, vf = k.float(), v.float()
+    qp = torch.arange(l, device=q.device)[:, None] + ctx
+    kp = torch.arange(sk, device=q.device)[None, :]
+    mask = (qp >= kp) & (kp < ctx + l)                            # (l, Sk)
+    rows = lambda t: t.reshape(b, hkv, rep, l, 1)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) / math.sqrt(hd)
+    p = torch.where(mask, torch.exp(logits - rows(lse)), 0.0)
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, vf)
+    return p, p * (dp - rows(delta)), qg, dog, kf
+
+
+def _dq(ds, kf, q):
+    b, l, hq, hd = q.shape
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", ds, kf) / math.sqrt(hd)
+    return dq.reshape(b, l, hq, hd).to(q.dtype)
+
+
+def _dkv(p, ds, qg, dog, k, v):
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, qg) / math.sqrt(k.shape[-1])
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dog)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def terapipe_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               do: torch.Tensor, lse: torch.Tensor,
+                               delta: torch.Tensor, ctx: int):
+    """Backward of :func:`terapipe_attention_ref`: returns ``(dq, dk, dv)``.
+
+    The arithmetic of ``terapipe_attention_bwd.py::_dq_kernel`` and
+    ``::_dkv_kernel``, all in float32: ``P = exp(scale*Q.K^T - lse)`` under
+    the mask ``q_pos >= kv_pos & kv_pos < ctx + l``, ``dS = P * (dO.V^T -
+    delta)``, ``dQ = scale*dS.K``, ``dK = scale*dS^T.Q``, ``dV = P^T.dO``.
+    q/do: (B, l, Hq, hd); k/v: (B, Sk, Hkv, hd); lse/delta: (B, Hq, l)
+    float32.  GQA-native: dK/dV are summed over each kv head's query heads
+    and come back as (B, Sk, Hkv, hd) in k's dtype; keys at and past
+    ``ctx + l`` get exactly zero.
+    """
+    p, ds, qg, dog, kf = _bwd_probs(q, k, v, do, lse, delta, ctx)
+    return (_dq(ds, kf, q),) + _dkv(p, ds, qg, dog, k, v)
+
+
+def terapipe_attention_dq_ref(q, k, v, do, lse, delta, ctx: int) -> torch.Tensor:
+    """dQ alone: the plain version of the dQ kernel."""
+    _, ds, _, _, kf = _bwd_probs(q, k, v, do, lse, delta, ctx)
+    return _dq(ds, kf, q)
+
+
+def terapipe_attention_dkv_ref(q, k, v, do, lse, delta, ctx: int):
+    """(dK, dV) alone: the plain version of the dK/dV kernel."""
+    p, ds, qg, dog, _ = _bwd_probs(q, k, v, do, lse, delta, ctx)
+    return _dkv(p, ds, qg, dog, k, v)
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,16 +1,22 @@
 """GQA attention layer (reference: ``repro/models/attention.py``).
 
-Ported modes: ``sliced`` (a token slice at a static context offset over
-[prefix KV cache ++ this slice]: prefill chunks) and ``decode`` (one new
-token per row against a fixed-capacity cache, at a scalar or a per-row
-position).  ``attn_full``, ``attn_sliced_dyn``, the ring cache and
-cross-attention arrive with the training and family slices.
+Ported modes: ``full`` (causal self-attention over the whole sequence: the
+training forward), ``sliced`` (a token slice at a static context offset
+over [prefix KV cache ++ this slice]: prefill chunks), ``sliced_dyn`` (a
+slice at an offset that is data, attending over the whole cache with an
+absolute-position mask: the pipeline executors' op) and ``decode`` (one
+new token per row against a fixed-capacity cache, at a scalar or a per-row
+position).  Windowed and bidirectional attention, the ring cache and
+cross-attention arrive with the family slices.
 
-Caches are updated IN PLACE: the reference returns new arrays, but every
-caller here owns the dense cache it passes (a fresh gather from the paged
-pool, or one ``prefill`` made), so writing into it saves a copy of the
-whole cache per layer.  The functions still return ``(out, (k, v))`` with
-the updated cache, as the reference does.
+``sliced`` and ``decode`` update their caches IN PLACE: the reference
+returns new arrays, but every serving caller owns the dense cache it passes
+(a fresh gather from the paged pool, or one ``prefill`` made), so writing
+into it saves a copy of the whole cache per layer.  ``sliced_dyn`` writes in
+place only while autograd is off; under grad it updates out of place, as
+the reference's ``dynamic_update_slice`` does, so that no tensor saved for
+the backward pass is overwritten.  All return ``(out, (k, v))`` with the
+updated cache, as the reference does.
 """
 from __future__ import annotations
 
@@ -18,8 +24,8 @@ import torch
 
 from repro_torch.kernels import ops as kops
 
-from .common import (ModelConfig, apply_rope, attention_scores_gqa, causal_mask,
-                     dense_init, rms_norm)
+from .common import (ModelConfig, apply_rope, attention_scores, attention_scores_gqa,
+                     causal_mask, dense_init, repeat_kv, rms_norm)
 
 
 def init_attn(gen: torch.Generator, cfg: ModelConfig):
@@ -54,8 +60,64 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     return q, k, v
 
 
+_BLOCKED_THRESHOLD = 2048   # above this seq len, use the q-chunked softmax path
+_Q_CHUNK = 1024
+
+
+def attention_blocked(q, k, v, *, q_offset: int = 0,
+                      q_chunk: int = _Q_CHUNK) -> torch.Tensor:
+    """Causal attention without materializing the full (Sq, Sk) score matrix.
+
+    A loop over query chunks; the chunk at absolute offset ``o`` only reads
+    keys[: o + qc] (exact causal FLOPs).  q: (B, Sq, H, hd); k/v:
+    (B, Sk, H, hd), already GQA-repeated.  (The reference's windowed variant
+    arrives with the hybrid family.)
+    """
+    sq = q.shape[1]
+    outs = []
+    for start in range(0, sq, q_chunk):
+        qc = min(q_chunk, sq - start)
+        off = q_offset + start
+        k_end = min(off + qc, k.shape[1])
+        mask = causal_mask(qc, k_end, q_offset=off, device=q.device)
+        outs.append(attention_scores(q[:, start:start + qc], k[:, :k_end], v[:, :k_end],
+                                     mask=mask))
+    return torch.cat(outs, dim=1)
+
+
 def _out_proj(p, cfg: ModelConfig, out, b, s, dtype):
     return out.reshape(b, s, -1) @ p["wo"].to(dtype)
+
+
+def _write_rows(cache: torch.Tensor, x: torch.Tensor, start: int) -> torch.Tensor:
+    """``cache[:, start:start+len(x)] = x``: in place while autograd is off,
+    out of place (a new tensor) under grad."""
+    x = x.to(cache.dtype)
+    if torch.is_grad_enabled():
+        return torch.slice_scatter(cache, x, dim=1, start=start, end=start + x.shape[1])
+    cache[:, start:start + x.shape[1]] = x
+    return cache
+
+
+def attn_full(p, cfg: ModelConfig, x: torch.Tensor, *, causal: bool = True,
+              window: int = 0) -> torch.Tensor:
+    """(B, S, D) -> (B, S, D).  Causal self-attention over the whole
+    sequence (the training forward)."""
+    if window:
+        raise NotImplementedError("windowed attention: not yet ported (hybrid family)")
+    if not causal:
+        raise NotImplementedError("bidirectional attention: not yet ported (enc-dec family)")
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, cfg, x, positions, rope=cfg.rope_theta > 0)
+    if cfg.use_kernel:
+        out = kops.terapipe_attention(q, k, v, ctx_len=0)
+    elif s > _BLOCKED_THRESHOLD:
+        rep = q.shape[2] // k.shape[2]
+        out = attention_blocked(q, repeat_kv(k, rep), repeat_kv(v, rep))
+    else:
+        out = attention_scores_gqa(q, k, v, mask=causal_mask(s, s, device=x.device)[None])
+    return _out_proj(p, cfg, out, b, s, x.dtype)
 
 
 def attn_sliced(p, cfg: ModelConfig, x_slice: torch.Tensor, kv_cache, ctx_len: int,
@@ -81,6 +143,34 @@ def attn_sliced(p, cfg: ModelConfig, x_slice: torch.Tensor, kv_cache, ctx_len: i
     else:
         mask = causal_mask(l, ctx_len + l, q_offset=ctx_len, device=q.device)
         out = attention_scores_gqa(q, k_all, v_all, mask=mask[None])
+    return _out_proj(p, cfg, out, b, l, x_slice.dtype), (ck, cv)
+
+
+def attn_sliced_dyn(p, cfg: ModelConfig, x_slice: torch.Tensor, kv_cache, ctx,
+                    *, window: int = 0):
+    """Attention of a slice at a context offset that is data (the lockstep
+    pipeline: at one tick each stage works at its own ctx).
+
+    ``ctx`` is a python int or a 0-d tensor (read once on the host).  The
+    slice's K/V are written at ``ctx``; the slice attends over the FULL cache
+    with an absolute-position causal mask, so entries past ctx + l (stale or
+    unwritten) are masked.  Under ``cfg.use_kernel`` the kernels' causal
+    frontier skips those tiles; the plain path pays for the whole cache.
+    """
+    if window:
+        raise NotImplementedError("windowed attention: not yet ported (hybrid family)")
+    b, l, _ = x_slice.shape
+    ctx = int(ctx)
+    positions = (torch.arange(l, device=x_slice.device) + ctx)[None, :]
+    q, k, v = _project_qkv(p, cfg, x_slice, positions, rope=cfg.rope_theta > 0)
+    ck, cv = kv_cache
+    ck = _write_rows(ck, k, ctx)
+    cv = _write_rows(cv, v, ctx)
+    if cfg.use_kernel:
+        out = kops.terapipe_attention(q, ck.to(q.dtype), cv.to(q.dtype), ctx_len=ctx)
+    else:
+        mask = causal_mask(l, ck.shape[1], q_offset=ctx, device=q.device)
+        out = attention_scores_gqa(q, ck.to(q.dtype), cv.to(q.dtype), mask=mask[None])
     return _out_proj(p, cfg, out, b, l, x_slice.dtype), (ck, cv)
 
 

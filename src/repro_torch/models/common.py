@@ -131,6 +131,23 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return k[:, :, :, None, :].expand(b, s, kv, n_rep, hd).reshape(b, s, kv * n_rep, hd)
 
 
+def attention_scores(
+    q: torch.Tensor,            # (B, Sq, H, hd)
+    k: torch.Tensor,            # (B, Sk, H, hd)
+    v: torch.Tensor,            # (B, Sk, H, hd)
+    *,
+    mask: Optional[torch.Tensor] = None,   # broadcastable to (B, H, Sq, Sk); True = keep
+) -> torch.Tensor:
+    """Dense-head attention (K/V already repeated to Hq heads).  Logits in
+    float32; masked logits take ``finfo(f32).min``, as the reference."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, F32_MIN)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
 def attention_scores_gqa(
     q: torch.Tensor,            # (B, Sq, Hq, hd)
     k: torch.Tensor,            # (B, Sk, Hkv, hd), Hkv divides Hq

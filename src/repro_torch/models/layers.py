@@ -1,6 +1,6 @@
 """Dense transformer block: pre-RMSNorm attention + SwiGLU FFN (reference:
-``repro/models/layers.py``).  ``dense_block_full`` and the traced-ctx
-variant arrive with the training slice."""
+``repro/models/layers.py``), in the full, sliced, sliced_dyn and decode
+modes of :mod:`repro_torch.models.attention`."""
 from __future__ import annotations
 
 import torch
@@ -33,10 +33,28 @@ def init_dense_block(gen: torch.Generator, cfg: ModelConfig):
     }
 
 
+def dense_block_full(p, cfg: ModelConfig, x: torch.Tensor, *, causal: bool = True,
+                     window: int = 0) -> torch.Tensor:
+    x = x + attn_mod.attn_full(p["attn"], cfg, rms_norm(x, p["ln_attn"]),
+                               causal=causal, window=window)
+    x = x + ffn(p["ffn"], rms_norm(x, p["ln_ffn"]))
+    return x
+
+
 def dense_block_sliced(p, cfg: ModelConfig, x: torch.Tensor, kv_cache, ctx_len: int,
                        *, window: int = 0):
     a, kv_cache = attn_mod.attn_sliced(p["attn"], cfg, rms_norm(x, p["ln_attn"]),
                                        kv_cache, ctx_len, window=window)
+    x = x + a
+    x = x + ffn(p["ffn"], rms_norm(x, p["ln_ffn"]))
+    return x, kv_cache
+
+
+def dense_block_sliced_dyn(p, cfg: ModelConfig, x: torch.Tensor, kv_cache, ctx,
+                           *, window: int = 0):
+    """Variant with a context offset that is data (the lockstep pipeline)."""
+    a, kv_cache = attn_mod.attn_sliced_dyn(p["attn"], cfg, rms_norm(x, p["ln_attn"]),
+                                           kv_cache, ctx, window=window)
     x = x + a
     x = x + ffn(p["ffn"], rms_norm(x, p["ln_ffn"]))
     return x, kv_cache

@@ -3,18 +3,22 @@
 A model is a stack of *block groups*: homogeneous runs of layers whose
 per-layer parameters are stacked on a leading axis (``_stack_init``).  The
 reference's ``lax.scan`` over that axis is a Python loop over the layer
-index here; there is no ``jit`` — the port runs eagerly.
+index here; there is no ``jit`` — the port runs eagerly.  ``jax.checkpoint``
+is ``torch.utils.checkpoint`` (non-reentrant): under ``cfg.remat`` each
+layer keeps only its input for the backward pass and recomputes the rest.
 
-Ported: the dense group's ``sliced`` and ``decode`` modes and the serving
-surface of ``build_model`` (``init``, ``embed``, ``head``, ``init_caches``,
-``prefill``, ``decode_step``).  The training surface (``forward``, ``loss``,
-``chunked_xent``) and the other families arrive with later slices.
+Ported: the dense group's ``full``, ``sliced``, ``sliced_dyn`` and
+``decode`` modes; the training surface (``forward``, ``loss``,
+``head_loss``, ``chunked_xent``) and the serving surface (``init``,
+``embed``, ``head``, ``init_caches``, ``prefill``, ``decode_step``) of
+``build_model``.  The other families arrive with later slices.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -27,26 +31,56 @@ Params = Dict[str, Any]
 class BlockGroup(NamedTuple):
     name: str            # key into params["groups"][name]
     count: int           # number of stacked blocks in this group
+    full: Callable       # (bp, x) -> x
     sliced: Callable     # (bp, x, cache, ctx:int) -> (x, cache)
     decode: Callable     # (bp, x, cache, pos) -> (x, cache)
     init_cache: Callable # (batch, max_len, dtype) -> stacked (k, v)
+    sliced_dyn: Callable # like sliced, ctx may be a 0-d tensor; caches out of place under grad
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked parameter dict (views, no copies)."""
+def _unstack(tree) -> List[Any]:
+    """The per-layer parameter dicts of a stacked tree (views, no copies).
+    One ``unbind`` per leaf, so the backward pass stacks each leaf's
+    gradient once rather than scattering every layer's into a full-size
+    zero tensor."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: _unstack(v) for k, v in tree.items()}
+        return [dict(zip(per_key, layer)) for layer in zip(*per_key.values())]
+    return list(torch.unbind(tree))
 
 
-def _scan(step: Callable, count: int, bp, x, cache, arg):
+def _remat(body: Callable, cfg: ModelConfig) -> Callable:
+    """``jax.checkpoint`` of the reference (``lm.py:74-88``) as non-reentrant
+    ``torch.utils.checkpoint``: the body keeps only its inputs for the
+    backward pass and runs again there to rebuild the rest."""
+    if cfg.remat_policy == "dots":
+        raise NotImplementedError("remat policy 'dots': not yet ported")
+    return lambda *args: checkpoint(body, *args, use_reentrant=False)
+
+
+def _scan_full(group: BlockGroup, bp, x, remat: bool, cfg: ModelConfig):
+    body = _remat(group.full, cfg) if remat else group.full
+    for bp_l in _unstack(bp):
+        x = body(bp_l, x)
+    return x
+
+
+def _scan(step: Callable, bp, x, cache, arg):
     """The reference's ``lax.scan`` over stacked layers (``_scan_sliced`` /
     ``_scan_decode``): layer ``i`` gets its parameter and cache views and
     writes its K/V into the stacked cache in place."""
     ck, cv = cache
-    for i in range(count):
-        x, _ = step(_layer(bp, i), x, (ck[i], cv[i]), arg)
+    for bp_l, ck_l, cv_l in zip(_unstack(bp), ck, cv):
+        x, _ = step(bp_l, x, (ck_l, cv_l), arg)
     return x, cache
+
+
+def apply_groups_full(model: "Model", params, x):
+    """The training forward of every group, layer by layer, each layer
+    under ``torch.utils.checkpoint`` when ``cfg.remat``."""
+    for g in model.groups:
+        x = _scan_full(g, params["groups"][g.name], x, model.cfg.remat, model.cfg)
+    return x
 
 
 def apply_groups_sliced(model: "Model", params, x, caches, ctx: int):
@@ -63,7 +97,7 @@ def apply_groups_decode(model: "Model", params, x, caches, pos):
 def _apply_groups(model: "Model", params, x, caches, arg, mode: str):
     new = []
     for g, c in zip(model.groups, caches):
-        x, c = _scan(getattr(g, mode), g.count, params["groups"][g.name], x, c, arg)
+        x, c = _scan(getattr(g, mode), params["groups"][g.name], x, c, arg)
         new.append(c)
     return x, new
 
@@ -79,9 +113,37 @@ def _stack_init(init_one: Callable, gen: torch.Generator, count: int):
     return stack(layers)
 
 
+def _xent_chunk(xc, w_head, lc):
+    logits = (xc @ w_head.to(xc.dtype)).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    return torch.sum(logz - gold)
+
+
+def chunked_xent(x: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor,
+                 chunk: int = 512) -> torch.Tensor:
+    """Mean token cross-entropy that never holds (B, S, V) logits: a loop
+    over sequence chunks, each under ``checkpoint`` (its logits are
+    recomputed in the backward), summed in float32 in chunk order."""
+    b, s, _ = x.shape
+    if s % chunk != 0:
+        chunk = s
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        total = total + checkpoint(_xent_chunk, x[:, c0:c0 + chunk], w_head,
+                                   labels[:, c0:c0 + chunk], use_reentrant=False)
+    return total / (b * s)
+
+
 def _make_dense_group(cfg: ModelConfig, name: str, count: int, device):
+    def full(bp, x):
+        return layers_mod.dense_block_full(bp, cfg, x)
+
     def sliced(bp, x, cache, ctx):
         return layers_mod.dense_block_sliced(bp, cfg, x, cache, ctx)
+
+    def sliced_dyn(bp, x, cache, ctx):
+        return layers_mod.dense_block_sliced_dyn(bp, cfg, x, cache, ctx)
 
     def decode(bp, x, cache, pos):
         return layers_mod.dense_block_decode(bp, cfg, x, cache, pos)
@@ -94,7 +156,8 @@ def _make_dense_group(cfg: ModelConfig, name: str, count: int, device):
     def init_params(gen):
         return _stack_init(lambda g: layers_mod.init_dense_block(g, cfg), gen, count)
 
-    return BlockGroup(name, count, sliced, decode, init_cache), init_params
+    return BlockGroup(name, count, full, sliced, decode, init_cache,
+                      sliced_dyn), init_params
 
 
 class Model(torch.nn.Module):
@@ -156,11 +219,22 @@ class Model(torch.nn.Module):
         x, caches = apply_groups_decode(self, params, x, caches, pos)
         return self.head(params, x), caches
 
-    def forward(self, params, batch):
-        raise NotImplementedError("the training forward arrives with the training slice")
+    def forward(self, params, batch) -> torch.Tensor:
+        """Float32 logits (B, S, V) of the whole sequence."""
+        x = self.embed(params, batch, 0)
+        x = apply_groups_full(self, params, x)
+        return self.head(params, x)
 
-    def loss(self, params, batch):
-        raise NotImplementedError("the LM loss arrives with the training slice")
+    def head_loss(self, params, x, labels) -> torch.Tensor:
+        """Final norm + chunked LM loss of the stack's output ``x``."""
+        x = rms_norm(x, params["final_ln"])
+        return chunked_xent(x, self._head_weight(params), labels)
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch`` (tokens, labels)."""
+        x = self.embed(params, batch, 0)
+        x = apply_groups_full(self, params, x)
+        return self.head_loss(params, x, batch["labels"])
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:

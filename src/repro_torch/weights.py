@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_map
+
 
 def _leaf(a, device, dtype):
     a = np.asarray(a)
@@ -25,8 +27,4 @@ def params_from_jax(tree, device, dtype=None):
     """Convert a parameter pytree of numpy arrays (``jax.device_get`` of the
     JAX package's params) into tensors on ``device``.  ``dtype`` casts the
     floating leaves; ``None`` keeps each leaf's own dtype."""
-    if isinstance(tree, dict):
-        return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_jax(v, device, dtype) for v in tree)
-    return _leaf(tree, device, dtype)
+    return tree_map(lambda a: _leaf(a, device, dtype), tree)
