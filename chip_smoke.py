@@ -6,15 +6,22 @@ Phases (each raises on failure; the script exits non-zero and prints no
 result line):
   1. build   — compile every CUDA kernel (forward, backward, decode) from
                src/repro_torch/kernels/csrc with nvcc (sm_90a), one nvcc per
-               source, all at once;
+               source, all at once; print each instance's registers and
+               spills (-Xptxas -v) and its HMMA/HGMMA count (cuobjdump
+               -sass); every bf16 instance of fwd_kernel_bf16 and
+               dkv_kernel_bf16 must run on the tensor cores, no bf16 SIMT
+               instance of them may remain, and the hd-128 ones (the main
+               paths') must not spill;
   2. kernels — hold each kernel against its plain PyTorch version on the
                card, bf16 (atol/rtol 2e-2) and f32 (2e-5; with logits x30,
                1e-4 for the forward and 3e-3 for the backward): prefill O
                and lse, decode O, and the backward's dQ, dK and dV (with
                exactly zero dK/dV on every stale cache tail), on a grid of
-               serving shapes and at the training step's own shape (B 4,
-               l 2048, Hq = Hkv = 16, hd 128), plus the autograd Function
-               against autograd of the plain op;
+               serving shapes (every head dim 16-160, an 8-token chunk at
+               ctx 250) and at the training step's own shape (B 4, l 2048,
+               Hq = Hkv = 16, hd 128); two dK/dV launches must agree bit for
+               bit; the autograd Function against autograd of the plain op;
+               a bf16 row stride that is not a multiple of 8 is refused;
   3. serve   — qwen3-0.6b at full width (28 layers, random weights from a
                seeded generator, bf16, use_kernel=True) behind the
                continuous-batching DecodeEngine: 8 requests, once with one
@@ -28,10 +35,14 @@ result line):
                5 AdamW steps at batch 4 x seq 2048 through
                repro_torch.launch.train.main --use-kernel; losses finite
                and within 1 of ln(vocab); launches must equal the remat
-               formula (2 forward, 1 dQ, 1 dK/dV per layer per step);
+               formula (2 forward, 1 dQ, 1 dK/dV per layer per step); then
+               one more step under torch.profiler: the 15 device kernels
+               that took the most time, with their share of the step;
   5. times   — each kernel at a main-path shape (CUDA events, median of 30
                after warm-up, L2 flushed before each launch) beside its
-               bound, its plain version and one PyTorch library call.
+               bound, its plain version and one PyTorch library call; the
+               forward also at the training shape (train_ms, train_bound_ms,
+               train_library_ms).
 
 The line before last is one JSON object {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA GPU and nvcc.
@@ -40,6 +51,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -61,21 +73,22 @@ from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
                                      terapipe_attention_bwd_ref,
                                      terapipe_attention_dkv_ref,
                                      terapipe_attention_dq_ref, terapipe_attention_ref)
-from repro_torch.kernels.terapipe_attention import terapipe_attention_fwd  # noqa: E402
+from repro_torch.kernels.terapipe_attention import (HEAD_DIMS,  # noqa: E402
+                                                     terapipe_attention_fwd)
 from repro_torch.kernels.terapipe_attention_bwd import (  # noqa: E402
     terapipe_attention_bwd, terapipe_attention_dkv, terapipe_attention_dq)
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.optim.adamw import adamw, cosine_schedule  # noqa: E402
 from repro_torch.serve import DecodeEngine, EngineConfig  # noqa: E402
-from repro_torch.tree import tree_items, tree_leaves  # noqa: E402
+from repro_torch.timing import PEAK_BF16_FLOPS, bound_ms, time_ms  # noqa: E402
+from repro_torch.tree import tree_items, tree_leaves, tree_map  # noqa: E402
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # f32 with logits scaled x30: rounding of |logits| ~ 100 shows in the
 # probabilities; the reference holds that case at 1e-4
 # (tests/test_kernels.py::test_kernel_softmax_stability)
 TOL_F32_X30 = 1e-4
-PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 (NVIDIA data sheet)
-PEAK_BYTES = 3.35e12           # H100 SXM HBM3
 N_LAYERS = 28                  # qwen3-0.6b
 COUNTERS = {"terapipe_attention_fwd": terapipe_attention_fwd,
             "decode_attention": decode_attention_kernel,
@@ -88,16 +101,87 @@ def log(msg: str) -> None:
 
 
 # --------------------------------------------------------------- 1. build
+# the tensor-core kernels: every bf16 instance must contain HMMA (or HGMMA)
+TENSOR_CORE_KERNELS = ("fwd_kernel_bf16", "dkv_kernel_bf16")
+MAIN_PATH_HD = 128          # gpt3-1b and qwen3-0.6b: these instances must not spill
+
+
+def _kernel_label(mangled: str) -> str:
+    """'fwd_kernel_bf16<128>' from an Itanium-mangled kernel name."""
+    m = re.search(r"\d+((?:fwd|dq|dkv|decode)\w*?)I(.*?)E", mangled)
+    if not m:
+        return mangled
+    targs = m.group(2)          # template arguments: [type]Li<hd>
+    dtype = "bf16," if "__nv_bfloat16" in targs else "f32," if targs.startswith("f") else ""
+    hd = re.search(r"Li(\d+)", targs)
+    return f"{m.group(1)}<{dtype}{hd.group(1) if hd else '?'}>"
+
+
+def _ptxas_report(log_text: str) -> dict:
+    """label -> {"regs", "spill_stores", "spill_loads"} from an -Xptxas -v log."""
+    out, fn = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+        if m:
+            fn = _kernel_label(m.group(1))
+            out.setdefault(fn, {})
+        elif fn and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[fn].update(spill_stores=int(st), spill_loads=int(ld))
+        elif fn and "Used" in line and "registers" in line:
+            out[fn]["regs"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+def _hmma_counts(lib: Path) -> dict:
+    """label -> number of HMMA/HGMMA instructions, from cuobjdump -sass."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = _kernel_label(m.group(1))
+            counts[fn] = 0
+        elif fn and re.search(r"\bH(?:G)?MMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
 def phase_build() -> None:
+    """Builds every source; prints each kernel instance's registers, spills
+    and tensor-core instruction count; asserts that every bf16 instance of
+    the forward and dK/dV kernels runs HMMA, that no bf16 SIMT instance of
+    them remains, and that the main path's hd-128 instances do not spill."""
     t0 = time.time()
     libs = _build.build_all()
     log(f"[build] {len(libs)} kernels built in {time.time() - t0:.1f} s")
-    for path in libs.values():
-        logf = Path(str(path) + ".log")
-        if logf.exists():
-            for line in logf.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[build] {path.name}: {line.strip()}")
+    report, hmma = {}, {}
+    for name, path in libs.items():
+        rep = _ptxas_report(Path(str(path) + ".log").read_text())
+        counts = _hmma_counts(path)
+        for fn in sorted(set(rep) | set(counts)):
+            r = rep.get(fn, {})
+            log(f"[build] {name} {fn}: {r.get('regs', '?')} registers, spill stores "
+                f"{r.get('spill_stores', '?')} B, loads {r.get('spill_loads', '?')} B; "
+                f"{counts.get(fn, '?')} HMMA/HGMMA")
+        report.update(rep)
+        hmma.update(counts)
+    want = [f"{k}<{hd}>" for k in TENSOR_CORE_KERNELS for hd in HEAD_DIMS]
+    missing = [fn for fn in want if not hmma.get(fn)]
+    if missing:
+        raise AssertionError(f"bf16 instances without tensor-core instructions: {missing}")
+    simt_bf16 = [fn for fn in hmma if fn.startswith(("fwd_kernel", "dkv_kernel"))
+                 and "bf16" in fn and fn.split("<")[0] not in TENSOR_CORE_KERNELS]
+    if simt_bf16:
+        raise AssertionError(f"bf16 SIMT instances remain: {simt_bf16}")
+    for kern in TENSOR_CORE_KERNELS:
+        r = report[f"{kern}<{MAIN_PATH_HD}>"]
+        if r["spill_stores"] or r["spill_loads"]:
+            raise AssertionError(f"{kern}<{MAIN_PATH_HD}>, on the main path, spills: {r}")
+    log(f"[build] all {len(want)} bf16 instances of {' and '.join(TENSOR_CORE_KERNELS)} "
+        f"run HMMA; no bf16 SIMT instance; hd {MAIN_PATH_HD} spills 0 bytes")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
@@ -131,9 +215,10 @@ def prefill_cases():
     """(B, l, ctx, Hq, Hkv, hd, logit_scale, tail); Sk = ctx + l + tail."""
     cases = [(1, l, ctx, 16, 8, 128, 1.0, 37)
              for l in (1, 96, 100, 128, 1024) for ctx in (0, 256, 700)]
-    cases += [(2, 100, 256, 16, 8, hd, 1.0, 37) for hd in (32, 96, 160)]
+    cases += [(2, 100, 256, 16, 8, hd, 1.0, 37) for hd in (16, 32, 64, 96, 160)]
     cases += [(2, 96, 256, 8, 8, 128, 1.0, 37), (2, 100, 256, 16, 4, 128, 1.0, 37),
               (2, 100, 256, 16, 8, 128, 30.0, 37)]
+    cases += [(1, 8, 250, 16, 8, 128, 1.0, 37)]    # an SLO-split serving chunk
     return cases
 
 
@@ -142,7 +227,24 @@ def fwd_cases():
     return prefill_cases() + TRAIN_CASES
 
 
+def _check_bf16_row_stride() -> None:
+    """The wrappers refuse a bf16 row stride that is a multiple of 4 elements
+    but not of 8: the tensor-core kernels copy 16-byte row chunks."""
+    b, l, h, hd = 1, 4, 2, 128
+    row = h * hd + 4
+    base = torch.zeros(b * l * row, dtype=torch.bfloat16, device="cuda")
+    q = base.as_strided((b, l, h, hd), (l * row, row, hd, 1))
+    k = torch.zeros((b, l, h, hd), dtype=torch.bfloat16, device="cuda")
+    try:
+        terapipe_attention_fwd(q, k, k, 0)
+    except ValueError as e:
+        log(f"[kernels] bf16 row stride {row} refused: {e}")
+        return
+    raise AssertionError(f"bf16 row stride {row} (not a multiple of 8) was accepted")
+
+
 def phase_kernels() -> dict:
+    _check_bf16_row_stride()
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"terapipe_attention_fwd": 0.0, "decode_attention": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
@@ -192,10 +294,15 @@ def phase_kernels() -> dict:
     return errs
 
 
+# GQA rep 4, l 200 over two and a half 64-key tiles past a ctx of 100
+GQA_CTX_CASE = (2, 200, 100, 16, 4, 128, 1.0, 37)
+
+
 def bwd_cases():
-    """prefill_cases() plus a ragged 33-row slice and the training shape,
-    with and without a tail."""
-    return prefill_cases() + [(2, 33, 17, 8, 2, 64, 1.0, 37)] + TRAIN_CASES
+    """prefill_cases() plus a ragged 33-row slice, a GQA slice whose ctx is
+    not a multiple of the dK/dV kernel's 64-key tile, and the training
+    shape, with and without a tail."""
+    return prefill_cases() + [(2, 33, 17, 8, 2, 64, 1.0, 37), GQA_CTX_CASE] + TRAIN_CASES
 
 
 def _bwd_inputs(b, l, ctx, hq, hkv, hd, sc, dtype, gen, tail=37):
@@ -242,6 +349,17 @@ def phase_kernels_bwd() -> dict:
             f"{worst['terapipe_attention_dkv']:.3g} (tol {TOL[dtype]}; x30 logits in "
             f"f32: {TOL_F32_X30 * 30:.0e}); stale tails exactly zero")
         errs = {k: max(errs[k], worst[k]) for k in errs}
+
+    # dK/dV is deterministic: each output element written once by one block,
+    # no atomics, so two launches on the same inputs agree bit for bit
+    for (b, l, ctx, hq, hkv, hd, sc, tail) in (TRAIN_CASES[0], GQA_CTX_CASE):
+        args = _bwd_inputs(b, l, ctx, hq, hkv, hd, sc, torch.bfloat16, gen, tail) + (ctx,)
+        first, second = terapipe_attention_dkv(*args), terapipe_attention_dkv(*args)
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError(f"dK/dV b={b} l={l} ctx={ctx}: two launches differ")
+        del args, first, second
+    log("[kernels] terapipe_attention_dkv bf16: two launches bit-identical (training "
+        "shape; GQA l=200 at ctx=100)")
 
     # the autograd Function (kernels both ways, a strided cotangent) against
     # autograd through the plain forward
@@ -483,34 +601,54 @@ def phase_train():
         f"of steps 2-{TRAIN_STEPS}), {metrics['tok_s']:.0f} tok/s, peak allocated "
         f"{peak_gb:.2f} GiB, mfu {metrics['mfu']:.4f} (6*N*tokens per step / 989 "
         f"TFLOP/s); launches {counts}")
+    torch.cuda.empty_cache()
+    _profile_step(cfg.replace(use_kernel=True))
     return counts, metrics
 
 
+TOP_KERNELS = 15
+
+
+def _profile_step(cfg) -> None:
+    """One step of the timed run's shape (launch.train.train_step, after one
+    unprofiled step) under torch.profiler with CUDA activities: prints the
+    device kernels that took the most time, each with its share of the
+    step's wall time, and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = build_model(cfg)
+    opt = adamw(cosine_schedule(3e-4, 20, TRAIN_STEPS))
+    state = {"params": tree_map(lambda p: p.requires_grad_(True), model.init(seed=0))}
+    state["opt_state"] = opt.init(state["params"])
+    data = DataPipeline(SyntheticSource(cfg.vocab_size, 0), TRAIN_BATCH, TRAIN_SEQ)
+    batches = [{k: torch.from_numpy(a).cuda() for k, a in data.batch_at(i).items()}
+               for i in range(2)]
+    train_launch.train_step(model, opt, state, batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        train_launch.train_step(model, opt, state, batches[1])
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t0) * 1e6
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = per_name.get(e.name, (0, 0.0))
+            per_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    if not per_name:
+        raise AssertionError("train profile: torch.profiler recorded no device kernels")
+    busy = sum(us for _, us in per_name.values())
+    log(f"[profile] gpt3-1b FULL, one step of batch {TRAIN_BATCH} x seq {TRAIN_SEQ} "
+        f"(torch.profiler, CUDA activities): wall {wall_us / 1e3:.1f} ms, device kernels "
+        f"{busy / 1e3:.1f} ms ({busy / wall_us:.1%} of the wall time) over "
+        f"{sum(n for n, _ in per_name.values())} launches of {len(per_name)} kernels")
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:TOP_KERNELS]
+    for rank, (name, (n, us)) in enumerate(top, 1):
+        log(f"[profile] {rank:2d}. {us / 1e3:9.3f} ms {us / wall_us:6.1%}  x{n:<5d} "
+            f"{name[:150]}")
+
+
 # --------------------------------------------------------------- 5. times
-def time_ms(fn, iters: int = 30, warmup: int = 5) -> float:
-    """Median device time of ``fn`` in ms, L2 flushed before each launch
-    (the serving path finds K/V cold: the pool gather ran between uses)."""
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
-
-
 def phase_times(errs: dict, launches: dict) -> list:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -596,12 +734,16 @@ def phase_times(errs: dict, launches: dict) -> list:
     log(f"[times] backward at the training shape: dQ + dK/dV kernels "
         f"{rows[-2]['ms'] + rows[-1]['ms']:.4f} ms vs SDPA's backward (dQ, dK, dV "
         f"together, is_causal) {library:.4f} ms")
-    fwd_train = time_ms(lambda: terapipe_attention_fwd(q, k, v, ctx))
+    # the forward at the training shape, where the step launches it 48 times
     with torch.no_grad():
-        sdpa_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+        rows[0].update(
+            train_ms=time_ms(lambda: terapipe_attention_fwd(q, k, v, ctx)),
+            train_bound_ms=bound_ms(4 * hd * pairs, nbytes(q, k, v, q, lse))[0],
+            train_library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
+            train_shape=shape)
     log(f"[times] terapipe_attention_fwd at the training shape ({shape}): kernel "
-        f"{fwd_train:.4f} ms, bound {bound_ms(4 * hd * pairs, nbytes(q, k, v, q, lse))[0]:.4f} "
-        f"ms, SDPA forward {sdpa_fwd:.4f} ms")
+        f"{rows[0]['train_ms']:.4f} ms, bound {rows[0]['train_bound_ms']:.4f} ms, SDPA "
+        f"forward {rows[0]['train_library_ms']:.4f} ms")
     return rows
 
 

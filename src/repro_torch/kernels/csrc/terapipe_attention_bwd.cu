@@ -16,18 +16,47 @@
 // What bounds it on the H100: arithmetic.  Per unmasked (query, key) pair
 // and head, dQ does 6*hd FLOPs (Q.K, dO.V, dS.K) and dK/dV 8*hd (Q.K, dO.V,
 // P^T.dO, dS^T.Q), against O((l + Sk)*H*hd) bytes: far above the ridge point
-// at training lengths.  This first version runs every product as f32 SIMT
-// FMAs out of shared memory (no tensor cores), like the forward; its ceiling
-// is the 67 TFLOP/s f32 rate.  mma/wgmma tiles are later work.  The design:
-//  * no sequential grid: where the TPU kernels carry their accumulators in
-//    VMEM scratch across the innermost grid axis, here one block owns one
-//    output tile and loops over the other axis itself -- dQ: one block per
-//    (b, hq, 32-row q tile), walking 32-key K/V tiles up to the tile's causal
-//    frontier ctx + min(q0 + 32, l); dK/dV: one block per (b, hkv, 32-key kv
-//    tile), walking the rep query heads of its group and, for each, the q
-//    tiles from the first one whose frontier reaches the kv tile.  Tiles past
-//    a frontier are neither loaded nor computed.  Each output element is
-//    written once by one block: no atomics, so the result is deterministic;
+// at training lengths.  Neither kernel has a sequential grid: where the TPU
+// kernels carry their accumulators in VMEM scratch across the innermost grid
+// axis, here one block owns one output tile and loops over the other axis
+// itself.  Each output element is written once by one block: no atomics, so
+// the result is deterministic.  The first q tile that reaches a kv tile is
+// max(k0 - ctx, 0) / BQ: clamped at 0 before the division, since C truncates
+// toward zero where the TPU code floors.  ctx is a runtime argument, so one
+// build serves every offset.
+//
+// dkv_kernel_bf16 (bf16 inputs): every product on the tensor cores
+// (mma.m16n8k16, bf16 operands, f32 accumulators; mma.cuh).
+//  * one block per (b, hkv, 64-key tile), 4 warps of 16 keys; key tiles are
+//    issued in order, so the low tiles, which walk the most query rows, go
+//    first.  The block walks the rep query heads of its group and, for each,
+//    the q tiles from the first one that reaches the key tile; a warp skips
+//    the tiles that do not reach its own 16 keys;
+//  * K and V are staged once; Q, dO (bf16) and lse, delta (f32) of each q
+//    tile arrive through a two-stage cp.async ring, so the next tile's copy
+//    overlaps this tile's products.  Rows padded by 8 bf16: ldmatrix loads
+//    free of bank conflicts;
+//  * keys are the M dimension of every product: S^T = K.Q^T, then
+//    P^T = exp(scale*S^T - lse[col]) (masked only in tiles that cross the
+//    diagonal or hold rows at and past l); dV += P^T.dO with P^T rounded to
+//    bf16 and reused from registers as the A operand (dO via ldmatrix.trans);
+//    dP^T = V.dO^T; dS^T = P^T * (dP^T - delta[col]) in f32; dK += dS^T.Q
+//    with dS^T from registers as a sum of two bf16 parts, hi + lo (two
+//    products): a single bf16 rounding of dS^T lost to cancellation across
+//    large q rows (logits x30).  dK is scaled once, at the end.  Rounding
+//    P^T to bf16 and dS^T to a bf16 pair are the numerical changes from the
+//    f32 SIMT kernel;
+//  * the dK and dV accumulators take hd f32 registers a lane; q tiles are 64
+//    rows up to hd 64 and 32 rows above, which keeps the scores in registers
+//    beside them.
+//
+// dq_kernel (bf16 and f32) and dkv_kernel_f32 (f32): f32 SIMT FMAs out of
+// shared memory; the tensor cores have no f32 product of f32 accuracy:
+//  * dQ: one block per (b, hq, 32-row q tile), walking 32-key K/V tiles up
+//    to the tile's causal frontier ctx + min(q0 + 32, l); dK/dV: one block
+//    per (b, hkv, 32-key kv tile), walking the rep query heads of its group
+//    and, for each, the q tiles from the first one whose frontier reaches
+//    the kv tile.  Tiles past a frontier are neither loaded nor computed;
 //  * tiles are staged once in shared memory as f32 (rows padded by 4 floats,
 //    so the lane-per-row float4 reads are free of bank conflicts) and
 //    reused by all 32 rows of the other operand; at hd 160 the four tiles
@@ -35,17 +64,222 @@
 //  * each warp owns 8 rows of the block's own tile (q rows for dQ, keys for
 //    dK/dV); lane j holds the score of the other tile's row j, and for the
 //    accumulating products each lane owns the dims d = lane + 32*i, with the
-//    per-pair P or dS broadcast by shuffle;
-//  * the frontier arithmetic is in this kernel's tile sizes, and the first q
-//    tile of a kv tile is max(k0 - ctx, 0) / 32: clamped at 0 before the
-//    division, since C truncates toward zero where the TPU code floors;
-//  * ctx is a runtime argument, so one build serves every offset.
+//    per-pair P or dS broadcast by shuffle.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 using namespace repro;
+using bf16 = __nv_bfloat16;
 
+// ------------------------------------------------------------ bf16, mma
+constexpr int kMmaBK = 64;              // keys per block (16 per warp)
+constexpr int kMmaThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// query rows per q tile: 64 up to hd 64, 32 above, where the dK and dV
+// accumulators (hd f32 registers a lane) leave less room for the scores
+template <int HD>
+constexpr int kDkvBQ = HD <= 64 ? 64 : 32;
+
+template <int HD>
+constexpr size_t dkv_smem_bytes() {
+  constexpr int BQ = kDkvBQ<HD>;
+  return size_t(2 * kMmaBK + 2 * 2 * BQ) * (HD + kPad) * sizeof(bf16) +
+         2 * 2 * BQ * sizeof(float);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+dkv_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                bf16* __restrict__ dk, bf16* __restrict__ dv, int l, int sk, int n_heads,
+                int rep, int ctx, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+                int64_t v_sb, int64_t v_ss, int64_t do_sb, int64_t do_ss, int64_t dk_sb,
+                int64_t dk_ss, int64_t dv_sb, int64_t dv_ss, float scale, float scale_log2) {
+  constexpr int BQ = kDkvBQ<HD>;
+  constexpr int LD = HD + kPad;
+  constexpr int KT = HD / 16;           // k-steps of K.Q^T and V.dO^T
+  constexpr int NQ = BQ / 8;            // n-tiles of S^T (8 query rows each)
+  constexpr int NO = HD / 8;            // n-tiles of dK and dV (8 dims each)
+  extern __shared__ uint4 smem_u4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_u4);
+  bf16* Vs = Ks + kMmaBK * LD;
+  bf16* Qs = Vs + kMmaBK * LD;          // [stage][BQ][LD]
+  bf16* dOs = Qs + 2 * BQ * LD;         // [stage][BQ][LD]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LD);   // [stage][BQ]
+  float* dl_s = lse_s + 2 * BQ;                                 // [stage][BQ]
+
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const LaneOffsets lo(lane);
+  const int k0 = blockIdx.z * kMmaBK;
+  const int kw0 = k0 + warp * 16;       // first key of this warp
+  const int valid_end = ctx + l;        // keys at and past it get zero
+
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  if (k0 < valid_end) {
+    cp_async_tile<kMmaBK, HD, kMmaThreads>(Ks, k + b * k_sb + k0 * k_ss + int64_t(hk) * HD,
+                                           k_ss, valid_end - k0, tid);
+    cp_async_tile<kMmaBK, HD, kMmaThreads>(Vs, v + b * v_sb + k0 * v_ss + int64_t(hk) * HD,
+                                           v_ss, valid_end - k0, tid);
+    // first q tile whose frontier ctx + min(q0 + BQ, l) passes k0
+    const int iq_first = max(k0 - ctx, 0) / BQ;
+    const int per_head = (l + BQ - 1) / BQ - iq_first;
+    const int n_items = rep * per_head;   // (query head, q tile) pairs, in order
+    auto load_q = [&](int item) {
+      const int stage = item & 1;
+      const int h = hk * rep + item / per_head;
+      const int q0 = (iq_first + item % per_head) * BQ;
+      cp_async_tile<BQ, HD, kMmaThreads>(Qs + stage * BQ * LD,
+                                         q + b * q_sb + q0 * q_ss + int64_t(h) * HD, q_ss,
+                                         l - q0, tid);
+      cp_async_tile<BQ, HD, kMmaThreads>(dOs + stage * BQ * LD,
+                                         dout + b * do_sb + q0 * do_ss + int64_t(h) * HD,
+                                         do_ss, l - q0, tid);
+      if (tid < 2 * BQ) {
+        const int i = tid % BQ;
+        const bool ok = q0 + i < l;
+        const float* src = (tid < BQ ? lse : delta) + (int64_t(b) * n_heads + h) * l;
+        cp_async4((tid < BQ ? lse_s : dl_s) + stage * BQ + i, ok ? src + q0 + i : src, ok);
+      }
+    };
+    load_q(0);
+    cp_async_commit();
+
+    for (int it = 0; it < n_items; ++it) {
+      if (it + 1 < n_items) load_q(it + 1);   // into the stage freed last iteration
+      cp_async_commit();
+      cp_async_wait<1>();                     // item it (and K, V) have landed
+      __syncthreads();
+      const int q0 = (iq_first + it % per_head) * BQ;
+      if (kw0 < ctx + min(q0 + BQ, l)) {      // some row of the tile sees this warp's keys
+        const bf16* Qt = Qs + (it & 1) * BQ * LD;
+        const bf16* dOt = dOs + (it & 1) * BQ * LD;
+        const float* lse_t = lse_s + (it & 1) * BQ;
+        const float* dl_t = dl_s + (it & 1) * BQ;
+
+        // S^T = K.Q^T: 16 keys x BQ query rows
+        float st[NQ][4];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk) {
+          uint32_t ka[4];
+          ldmatrix_x4(ka, Ks + (warp * 16 + lo.a_row) * LD + kk * 16 + lo.a_col);
+#pragma unroll
+          for (int jp = 0; jp < NQ / 2; ++jp) {
+            uint32_t bq[4];
+            ldmatrix_x4(bq, Qt + (jp * 16 + lo.b_row) * LD + kk * 16 + lo.b_col);
+            mma_bf16(st[2 * jp], ka, bq[0], bq[1]);
+            mma_bf16(st[2 * jp + 1], ka, bq[2], bq[3]);
+          }
+        }
+
+        // P^T = exp(scale*S^T - lse[col]), masked only where the tile crosses
+        // the diagonal of this warp's keys or holds rows at and past l
+        const bool edge = kw0 + 15 > ctx + q0 || q0 + BQ > l;
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          const int c = j * 8 + 2 * t4;
+          const float2 lc = *reinterpret_cast<const float2*>(lse_t + c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = exp2f(st[j][e] * scale_log2 - ((e & 1) ? lc.y : lc.x) * kLog2e);
+            if (edge) {
+              const int key = kw0 + g + (e >> 1) * 8;
+              const int row = q0 + c + (e & 1);
+              if (!(row < l && key <= ctx + row)) p = 0.f;
+            }
+            st[j][e] = p;
+          }
+        }
+
+        // dV += P^T.dO: P^T from registers (bf16), dO through ldmatrix.trans
+#pragma unroll
+        for (int kk = 0; kk < NQ / 2; ++kk) {
+          uint32_t pa[4];
+          pack_a(pa, st[2 * kk], st[2 * kk + 1]);
+#pragma unroll
+          for (int dp = 0; dp < HD / 16; ++dp) {
+            uint32_t bo[4];
+            ldmatrix_x4_trans(bo, dOt + (kk * 16 + lo.bt_row) * LD + dp * 16 + lo.bt_col);
+            mma_bf16(dva[2 * dp], pa, bo[0], bo[1]);
+            mma_bf16(dva[2 * dp + 1], pa, bo[2], bo[3]);
+          }
+        }
+
+        // dP^T = V.dO^T
+        float dpt[NQ][4];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk) {
+          uint32_t va[4];
+          ldmatrix_x4(va, Vs + (warp * 16 + lo.a_row) * LD + kk * 16 + lo.a_col);
+#pragma unroll
+          for (int jp = 0; jp < NQ / 2; ++jp) {
+            uint32_t bo[4];
+            ldmatrix_x4(bo, dOt + (jp * 16 + lo.b_row) * LD + kk * 16 + lo.b_col);
+            mma_bf16(dpt[2 * jp], va, bo[0], bo[1]);
+            mma_bf16(dpt[2 * jp + 1], va, bo[2], bo[3]);
+          }
+        }
+
+        // dS^T = P^T * (dP^T - delta[col]), in f32
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          const float2 dc = *reinterpret_cast<const float2*>(dl_t + j * 8 + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[j][e] *= dpt[j][e] - ((e & 1) ? dc.y : dc.x);
+        }
+
+        // dK += dS^T.Q: dS^T from registers as bf16 hi + lo parts (Q through
+        // ldmatrix.trans, once for both); one bf16 rounding of dS^T is not
+        // enough where large q rows cancel in the sum
+#pragma unroll
+        for (int kk = 0; kk < NQ / 2; ++kk) {
+          uint32_t ds_hi[4], ds_lo[4];
+          pack_a_split(ds_hi, ds_lo, st[2 * kk], st[2 * kk + 1]);
+#pragma unroll
+          for (int dp = 0; dp < HD / 16; ++dp) {
+            uint32_t bq[4];
+            ldmatrix_x4_trans(bq, Qt + (kk * 16 + lo.bt_row) * LD + dp * 16 + lo.bt_col);
+            mma_bf16(dka[2 * dp], ds_hi, bq[0], bq[1]);
+            mma_bf16(dka[2 * dp + 1], ds_hi, bq[2], bq[3]);
+            mma_bf16(dka[2 * dp], ds_lo, bq[0], bq[1]);
+            mma_bf16(dka[2 * dp + 1], ds_lo, bq[2], bq[3]);
+          }
+        }
+      }
+      __syncthreads();   // every warp is done with stage it & 1 before it is refilled
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kw0 + g + 8 * r;
+    if (key >= sk) continue;
+    bf16* dk_row = dk + b * dk_sb + key * dk_ss + int64_t(hk) * HD + 2 * t4;
+    bf16* dv_row = dv + b * dv_sb + key * dv_ss + int64_t(hk) * HD + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<uint32_t*>(dk_row + n * 8) =
+          pack_bf16(dka[n][2 * r] * scale, dka[n][2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv_row + n * 8) = pack_bf16(dva[n][2 * r], dva[n][2 * r + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------- dQ (both), dK/dV f32: SIMT
 constexpr int kBQ = 32;                 // query rows per tile
 constexpr int kBK = 32;                 // keys per tile
 constexpr int kWarps = 4;
@@ -186,15 +420,15 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const T* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-           int l, int sk, int n_heads, int rep, int ctx, int64_t q_sb, int64_t q_ss,
-           int64_t k_sb, int64_t k_ss, int64_t v_sb, int64_t v_ss, int64_t do_sb,
-           int64_t do_ss, int64_t dk_sb, int64_t dk_ss, int64_t dv_sb, int64_t dv_ss,
-           float scale) {
+dkv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ dk, float* __restrict__ dv, int l, int sk,
+               int n_heads, int rep, int ctx, int64_t q_sb, int64_t q_ss, int64_t k_sb,
+               int64_t k_ss, int64_t v_sb, int64_t v_ss, int64_t do_sb, int64_t do_ss,
+               int64_t dk_sb, int64_t dk_ss, int64_t dv_sb, int64_t dv_ss, float scale) {
   constexpr int LD = HD + 4;
   constexpr int NDL = (HD + 31) / 32;
   extern __shared__ float4 smem4[];
@@ -218,21 +452,21 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     for (int i = 0; i < NDL; ++i) acc_k[r][i] = acc_v[r][i] = 0.f;
 
   if (k0 < valid_end) {
-    stage<T, HD>(Ks, k + b * k_sb + k0 * k_ss + int64_t(hk) * HD, k_ss, valid_end - k0, tid);
-    stage<T, HD>(Vs, v + b * v_sb + k0 * v_ss + int64_t(hk) * HD, v_ss, valid_end - k0, tid);
+    stage<float, HD>(Ks, k + b * k_sb + k0 * k_ss + int64_t(hk) * HD, k_ss, valid_end - k0, tid);
+    stage<float, HD>(Vs, v + b * v_sb + k0 * v_ss + int64_t(hk) * HD, v_ss, valid_end - k0, tid);
     // first q tile whose frontier ctx + min((iq+1)*32, l) passes k0
     const int iq_first = max(k0 - ctx, 0) / kBQ;
     const int n_qt = (l + kBQ - 1) / kBQ;
     for (int r = 0; r < rep; ++r) {
       const int h = hk * rep + r;
-      const T* qh = q + b * q_sb + int64_t(h) * HD;
-      const T* doh = dout + b * do_sb + int64_t(h) * HD;
+      const float* qh = q + b * q_sb + int64_t(h) * HD;
+      const float* doh = dout + b * do_sb + int64_t(h) * HD;
       const int64_t row_at = (int64_t(b) * n_heads + h) * l;
       for (int iq = iq_first; iq < n_qt; ++iq) {
         const int q0 = iq * kBQ;
         __syncthreads();   // the previous q tile is consumed (and K, V are staged)
-        stage<T, HD>(Qs, qh + q0 * q_ss, q_ss, l - q0, tid);
-        stage<T, HD>(dOs, doh + q0 * do_ss, do_ss, l - q0, tid);
+        stage<float, HD>(Qs, qh + q0 * q_ss, q_ss, l - q0, tid);
+        stage<float, HD>(dOs, doh + q0 * do_ss, do_ss, l - q0, tid);
         if (tid < kBQ) {
           const bool in = q0 + tid < l;
           lse_s[tid] = in ? lse[row_at + q0 + tid] : 0.f;
@@ -284,8 +518,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   for (int rr = 0; rr < kRows; ++rr) {
     const int key = k0 + row0 + rr;
     if (key >= sk) continue;
-    T* dk_row = dk + b * dk_sb + key * dk_ss + int64_t(hk) * HD;
-    T* dv_row = dv + b * dv_sb + key * dv_ss + int64_t(hk) * HD;
+    float* dk_row = dk + b * dk_sb + key * dk_ss + int64_t(hk) * HD;
+    float* dv_row = dv + b * dv_sb + key * dv_ss + int64_t(hk) * HD;
 #pragma unroll
     for (int t = 0; t < NDL; ++t) {
       const int d = lane + 32 * t;
@@ -327,38 +561,64 @@ cudaError_t launch_dq(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t launch_dkv(const Args& a) {
-  auto kern = dkv_kernel<T, HD>;
+template <int HD>
+cudaError_t launch_dkv_f32(const Args& a) {
+  auto kern = dkv_kernel_f32<HD>;
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = opt_in(kern, smem);
   if (err != cudaSuccess) return err;
   const long long* st = a.st;
   const dim3 grid((a.sk + kBK - 1) / kBK, a.Hkv, a.B);
   kern<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.o1), static_cast<T*>(a.o2),
-      a.l, a.sk, a.Hq, a.Hq / a.Hkv, a.ctx, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9], st[10], st[11], rsqrtf(float(HD)));
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(a.o1), static_cast<float*>(a.o2), a.l, a.sk, a.Hq, a.Hq / a.Hkv,
+      a.ctx, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+      st[11], rsqrtf(float(HD)));
   return cudaGetLastError();
 }
 
-template <bool DQ, typename T>
-cudaError_t dispatch(int hd, const Args& a) {
+template <int HD>
+cudaError_t launch_dkv_bf16(const Args& a) {
+  auto kern = dkv_kernel_bf16<HD>;
+  const size_t smem = dkv_smem_bytes<HD>();
+  cudaError_t err = opt_in(kern, smem);
+  if (err != cudaSuccess) return err;
+  const long long* st = a.st;
+  const dim3 grid(a.Hkv, a.B, (a.sk + kMmaBK - 1) / kMmaBK);
+  kern<<<grid, kMmaThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.o1), static_cast<bf16*>(a.o2), a.l, a.sk, a.Hq, a.Hq / a.Hkv,
+      a.ctx, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+      st[11], rsqrtf(float(HD)), rsqrtf(float(HD)) * kLog2e);
+  return cudaGetLastError();
+}
+
+#define HEAD_DIMS(CASE) CASE(16) CASE(32) CASE(64) CASE(96) CASE(128) CASE(160)
+
+template <typename T>
+cudaError_t dispatch_dq(int hd, const Args& a) {
   switch (hd) {
-#define CASE(HD) \
-    case HD: return DQ ? launch_dq<T, HD>(a) : launch_dkv<T, HD>(a);
-    CASE(16) CASE(32) CASE(64) CASE(96) CASE(128) CASE(160)
+#define CASE(HD) case HD: return launch_dq<T, HD>(a);
+    HEAD_DIMS(CASE)
 #undef CASE
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool DQ>
-int run(int is_bf16, int hd, const Args& a) {
-  return int(is_bf16 ? dispatch<DQ, __nv_bfloat16>(hd, a) : dispatch<DQ, float>(hd, a));
+// bf16 -> the tensor-core kernel, f32 -> the SIMT kernel; nothing else.
+cudaError_t dispatch_dkv(bool is_bf16, int hd, const Args& a) {
+  switch (hd) {
+#define CASE(HD) case HD: return is_bf16 ? launch_dkv_bf16<HD>(a) : launch_dkv_f32<HD>(a);
+    HEAD_DIMS(CASE)
+#undef CASE
+    default: return cudaErrorInvalidValue;
+  }
 }
+#undef HEAD_DIMS
 
 }  // namespace
 
@@ -374,7 +634,7 @@ extern "C" int terapipe_attention_dq(
   const long long st[10] = {q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, do_sb, do_ss, dq_sb, dq_ss};
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, B, l, 0, Hq, Hkv, ctx, st,
                static_cast<cudaStream_t>(stream)};
-  return run<true>(is_bf16, hd, a);
+  return int(is_bf16 ? dispatch_dq<bf16>(hd, a) : dispatch_dq<float>(hd, a));
 }
 
 // As terapipe_attention_dq, with Sk the keys of k/v and dk, dv (B, Sk, Hkv, hd)
@@ -389,5 +649,5 @@ extern "C" int terapipe_attention_dkv(
                             do_sb, do_ss, dk_sb, dk_ss, dv_sb, dv_ss};
   const Args a{q, k, v, dout, lse, delta, dk, dv, B, l, Sk, Hq, Hkv, ctx, st,
                static_cast<cudaStream_t>(stream)};
-  return run<false>(is_bf16, hd, a);
+  return int(dispatch_dkv(is_bf16 != 0, hd, a));
 }

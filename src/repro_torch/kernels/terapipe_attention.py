@@ -32,7 +32,10 @@ def _lib():
 def check_attention_inputs(q, k, v, what: str) -> None:
     """Shared argument checks of the attention kernels: CUDA tensors on one
     device, bf16 or f32, (B, S, H, hd) with dense head and feature dims,
-    16-byte aligned rows, a supported head dim and ``Hq % Hkv == 0``."""
+    16-byte aligned base pointers and rows (batch and sequence strides that
+    are multiples of 8 elements in bf16, whose tiles are copied in 16-byte
+    ``cp.async`` chunks, and of 4 in f32), a supported head dim and
+    ``Hq % Hkv == 0``."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"{what}: {name} is on {t.device}; the kernel takes "
@@ -43,10 +46,12 @@ def check_attention_inputs(q, k, v, what: str) -> None:
         if t.dim() != 4 or t.device != q.device:
             raise ValueError(f"{what}: {name} must be 4-d on {q.device}, got "
                              f"{tuple(t.shape)} on {t.device}")
-        hd = t.shape[3]
-        if t.stride(3) != 1 or t.stride(2) != hd or t.stride(1) % 4 or t.stride(0) % 4:
+        hd, row = t.shape[3], 16 // t.element_size()
+        if t.stride(3) != 1 or t.stride(2) != hd or t.stride(1) % row or t.stride(0) % row:
             raise ValueError(f"{what}: {name} strides {t.stride()} — head and "
-                             f"feature dims must be dense, row strides multiples of 4")
+                             f"feature dims must be dense, batch and sequence "
+                             f"strides multiples of {row} elements ({t.dtype}: "
+                             f"16-byte rows)")
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} is not 16-byte aligned")
     if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:

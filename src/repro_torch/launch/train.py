@@ -53,6 +53,23 @@ def _check_ported(args) -> None:
             raise NotImplementedError(f"{flag}: not yet ported (ROADMAP Queue 1 {item})")
 
 
+def train_step(model, opt, state: dict, batch) -> torch.Tensor:
+    """One step: ``model.loss`` on ``batch``, its backward, and the AdamW
+    update of ``state["params"]`` and ``state["opt_state"]``, rebound in
+    the dict; returns the loss, detached."""
+    loss = model.loss(state["params"], batch)
+    loss.backward()
+    # rebinding as soon as each value is replaced keeps one copy of the
+    # moments and of the gradients alive at a time
+    updates, state["opt_state"] = opt.update(tree_map(lambda p: p.grad, state["params"]),
+                                             state["opt_state"], state["params"])
+    for p in tree_leaves(state["params"]):
+        p.grad = None
+    state["params"] = tree_map(lambda p: p.requires_grad_(True),
+                               apply_updates(state["params"], updates))
+    return loss.detach()
+
+
 def main(argv=None, history: Optional[list] = None) -> float:
     """Runs the training loop and returns the final loss.  If ``history``
     is a list, each logged step appends ``{"step", "loss", "tok_s",
@@ -86,26 +103,16 @@ def main(argv=None, history: Optional[list] = None) -> float:
         cfg = cfg.replace(use_kernel=True)
     model = build_model(cfg, device=args.device)
     dev = model.device
-    params = tree_map(lambda p: p.requires_grad_(True), model.init(args.seed))
     opt = adamw(cosine_schedule(args.lr, args.warmup, args.steps))
-    opt_state = opt.init(params)
+    state = {"params": tree_map(lambda p: p.requires_grad_(True), model.init(args.seed))}
+    state["opt_state"] = opt.init(state["params"])
     data = DataPipeline(SyntheticSource(cfg.vocab_size, args.seed), args.batch, args.seq)
 
     step, loss = 0, None
     t_last, tok_count, steps_since = time.time(), 0, 0
     while step < args.steps:
         batch = {k: torch.from_numpy(a).to(dev) for k, a in data.batch_at(step).items()}
-        loss = model.loss(params, batch)
-        loss.backward()
-        # rebinding as soon as each value is replaced keeps one copy of the
-        # moments and of the gradients alive at a time
-        updates, opt_state = opt.update(tree_map(lambda p: p.grad, params),
-                                        opt_state, params)
-        for p in tree_leaves(params):
-            p.grad = None
-        params = tree_map(lambda p: p.requires_grad_(True), apply_updates(params, updates))
-        del updates
-        loss = loss.detach()
+        loss = train_step(model, opt, state, batch)
         tok_count += batch["tokens"].numel()
         steps_since += 1
         step += 1
@@ -119,7 +126,7 @@ def main(argv=None, history: Optional[list] = None) -> float:
             print(f"step {step:5d} loss {loss_f:.4f} {rec['tok_s']:,.0f} tok/s "
                   f"{rec['ms_per_step']:.1f} ms/step", flush=True)
             t_last, tok_count, steps_since = time.time(), 0, 0
-    n_params = sum(p.numel() for p in tree_leaves(params))
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
     print(f"done: {args.steps} steps, final loss {float(loss):.4f} "
           f"({cfg.name}, {n_params:,} parameters, {dev})")
     return float(loss)

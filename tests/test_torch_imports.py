@@ -24,6 +24,7 @@ from repro_torch.launch import serve as serve_launch
 from repro_torch.launch import train as train_launch
 from repro_torch.models import build_model
 from repro_torch.serve import DecodeEngine, EngineConfig
+from repro_torch.timing import PEAK_BF16_FLOPS, PEAK_BYTES, bound_ms
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
@@ -42,7 +43,7 @@ def _imports(tree):
 def test_port_imports_nothing_of_jax():
     assert len(PORT_FILES) > 20
     bad = []
-    for path in PORT_FILES + [ROOT / "chip_smoke.py"]:
+    for path in PORT_FILES + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]:
         for mod in _imports(ast.parse(path.read_text())):
             if mod.split(".")[0] in FORBIDDEN_MODULES:
                 bad.append(f"{path.relative_to(ROOT)}: {mod}")
@@ -59,6 +60,11 @@ def test_port_calls_no_finished_attention_op():
             if isinstance(node, ast.Attribute) and node.attr in FORBIDDEN_CALLS:
                 bad.append(f"{path.relative_to(ROOT)}:{node.lineno}: {node.attr}")
     assert not bad, bad
+
+
+def test_bound_ms_is_the_slower_of_operations_and_bytes():
+    assert bound_ms(PEAK_BF16_FLOPS, 1.0) == (1e3, "operations")
+    assert bound_ms(1.0, 2 * PEAK_BYTES) == (2e3, "bytes")
 
 
 def _cpu_tensors(hd=32):
