@@ -8,18 +8,21 @@ result line):
                src/repro_torch/kernels/csrc with nvcc (sm_90a), one nvcc per
                source, all at once; print each instance's registers and
                spills (-Xptxas -v) and its HMMA/HGMMA count (cuobjdump
-               -sass); every bf16 instance of fwd_kernel_bf16 and
-               dkv_kernel_bf16 must run on the tensor cores, no bf16 SIMT
-               instance of them may remain, and the hd-128 ones (the main
-               paths') must not spill;
+               -sass); every bf16 instance of fwd_kernel_bf16,
+               dq_kernel_bf16 and dkv_kernel_bf16 must run on the tensor
+               cores, no bf16 SIMT instance of them may remain, and the
+               hd-128 ones (the main paths') must not spill; the decode
+               kernels' registers and spills at hd 128;
   2. kernels — hold each kernel against its plain PyTorch version on the
                card, bf16 (atol/rtol 2e-2) and f32 (2e-5; with logits x30,
                1e-4 for the forward and 3e-3 for the backward): prefill O
-               and lse, decode O, and the backward's dQ, dK and dV (with
-               exactly zero dK/dV on every stale cache tail), on a grid of
-               serving shapes (every head dim 16-160, an 8-token chunk at
-               ctx 250) and at the training step's own shape (B 4, l 2048,
-               Hq = Hkv = 16, hd 128); two dK/dV launches must agree bit for
+               and lse, decode O (lengths at the decode kernel's chunk
+               edges 0, 1, C-1, C, C+1 and L, per-batch mixes, GQA rep 1-8),
+               and the backward's dQ, dK and dV (with exactly zero dK/dV on
+               every stale cache tail), on a grid of serving shapes (every
+               head dim 16-160, an 8-token chunk at ctx 250) and at the
+               training step's own shape (B 4, l 2048, Hq = Hkv = 16, hd
+               128); two launches of decode, dQ and dK/dV must agree bit for
                bit; the autograd Function against autograd of the plain op;
                a bf16 row stride that is not a multiple of 8 is refused;
   3. serve   — qwen3-0.6b at full width (28 layers, random weights from a
@@ -37,7 +40,8 @@ result line):
                and within 1 of ln(vocab); launches must equal the remat
                formula (2 forward, 1 dQ, 1 dK/dV per layer per step); then
                one more step under torch.profiler: the 15 device kernels
-               that took the most time, with their share of the step;
+               that took the most time, and the repo's own kernels wherever
+               they rank, with their share of the step;
   5. times   — each kernel at a main-path shape (CUDA events, median of 30
                after warm-up, L2 flushed before each launch) beside its
                bound, its plain version and one PyTorch library call; the
@@ -67,7 +71,7 @@ import torch  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.pipeline import DataPipeline, SyntheticSource  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention_kernel  # noqa: E402
+from repro_torch.kernels.decode_attention import CHUNK, decode_attention_kernel  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
                                      terapipe_attention_bwd_ref,
@@ -102,7 +106,8 @@ def log(msg: str) -> None:
 
 # --------------------------------------------------------------- 1. build
 # the tensor-core kernels: every bf16 instance must contain HMMA (or HGMMA)
-TENSOR_CORE_KERNELS = ("fwd_kernel_bf16", "dkv_kernel_bf16")
+TENSOR_CORE_KERNELS = ("fwd_kernel_bf16", "dq_kernel_bf16", "dkv_kernel_bf16")
+DECODE_KERNELS = ("decode_chunk_kernel", "decode_merge_kernel")
 MAIN_PATH_HD = 128          # gpt3-1b and qwen3-0.6b: these instances must not spill
 
 
@@ -152,8 +157,8 @@ def _hmma_counts(lib: Path) -> dict:
 def phase_build() -> None:
     """Builds every source; prints each kernel instance's registers, spills
     and tensor-core instruction count; asserts that every bf16 instance of
-    the forward and dK/dV kernels runs HMMA, that no bf16 SIMT instance of
-    them remains, and that the main path's hd-128 instances do not spill."""
+    the forward, dQ and dK/dV kernels runs HMMA, that no bf16 SIMT instance
+    of them remains, and that the main path's hd-128 instances do not spill."""
     t0 = time.time()
     libs = _build.build_all()
     log(f"[build] {len(libs)} kernels built in {time.time() - t0:.1f} s")
@@ -172,7 +177,7 @@ def phase_build() -> None:
     missing = [fn for fn in want if not hmma.get(fn)]
     if missing:
         raise AssertionError(f"bf16 instances without tensor-core instructions: {missing}")
-    simt_bf16 = [fn for fn in hmma if fn.startswith(("fwd_kernel", "dkv_kernel"))
+    simt_bf16 = [fn for fn in hmma if fn.startswith(("fwd_kernel", "dq_kernel", "dkv_kernel"))
                  and "bf16" in fn and fn.split("<")[0] not in TENSOR_CORE_KERNELS]
     if simt_bf16:
         raise AssertionError(f"bf16 SIMT instances remain: {simt_bf16}")
@@ -180,8 +185,12 @@ def phase_build() -> None:
         r = report[f"{kern}<{MAIN_PATH_HD}>"]
         if r["spill_stores"] or r["spill_loads"]:
             raise AssertionError(f"{kern}<{MAIN_PATH_HD}>, on the main path, spills: {r}")
-    log(f"[build] all {len(want)} bf16 instances of {' and '.join(TENSOR_CORE_KERNELS)} "
+    log(f"[build] all {len(want)} bf16 instances of {', '.join(TENSOR_CORE_KERNELS)} "
         f"run HMMA; no bf16 SIMT instance; hd {MAIN_PATH_HD} spills 0 bytes")
+    for kern in DECODE_KERNELS:
+        for dt in ("bf16", "f32"):
+            fn = f"{kern}<{dt},{MAIN_PATH_HD}>"
+            log(f"[build] {fn} (serving's decode, chunk {CHUNK} keys): {report[fn]}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
@@ -243,6 +252,24 @@ def _check_bf16_row_stride() -> None:
     raise AssertionError(f"bf16 row stride {row} (not a multiple of 8) was accepted")
 
 
+# (B, L, Hq, Hkv, hd, kv_len): the serving round, lengths at the chunk edges
+# (0, 1, C-1, C, C+1, L), per-batch mixes, L not a multiple of C, GQA rep
+# 1, 2, 4 and 8 (two query-head groups per kv head), every head dim
+SERVE_ROUND = (4, 2048, 16, 8, 128, [1056, 544, 800, 160])
+DECODE_CASES = [SERVE_ROUND,
+                (6, 2048, 16, 8, 128, [0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2048]),
+                (4, 2048, 16, 8, 128, [1, 2048, 700, 1333]),
+                (4, 2048, 16, 8, 128, 1500),
+                (4, 2048, 16, 8, 128, 1),
+                (2, 256, 16, 8, 128, 0),
+                (3, 512, 16, 4, 160, [5, 512, 77]),
+                (3, 512, 16, 4, 160, [CHUNK, 0, 2 * CHUNK + 1]),
+                (3, 512, 8, 8, 32, [300, 1, 512]),
+                (2, 300, 8, 8, 16, [CHUNK + 1, 300]),
+                (2, 384, 16, 2, 64, [2 * CHUNK - 1, 384]),
+                (2, 640, 16, 8, 96, [3 * CHUNK, 641])]
+
+
 def phase_kernels() -> dict:
     _check_bf16_row_stride()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -272,12 +299,7 @@ def phase_kernels() -> dict:
         errs["terapipe_attention_fwd"] = max(errs["terapipe_attention_fwd"], worst)
 
         worst = 0.0
-        dec_cases = [(4, 2048, 16, 8, 128, [1, 2048, 700, 1333]),
-                     (4, 2048, 16, 8, 128, 1500),
-                     (4, 2048, 16, 8, 128, 1),
-                     (3, 512, 16, 4, 160, [5, 512, 77]),
-                     (3, 512, 8, 8, 32, [300, 1, 512])]
-        for (b, L, hq, hkv, hd, kv_len) in dec_cases:
+        for (b, L, hq, hkv, hd, kv_len) in DECODE_CASES:
             q = _rand((b, 1, hq, hd), dtype, gen)
             k = _rand((b, L, hkv, hd), dtype, gen)
             v = _rand((b, L, hkv, hd), dtype, gen)
@@ -288,8 +310,22 @@ def phase_kernels() -> dict:
             torch.cuda.synchronize()
             worst = max(worst, _err(out, ref, tol, f"decode {dtype} b={b} L={L} "
                                     f"hq={hq} hkv={hkv} hd={hd} kv_len={kv_len}"))
-        log(f"[kernels] decode_attention {dtype}: {len(dec_cases)} cases, "
-            f"max abs err {worst:.3g} (tol {tol})")
+            empty = torch.as_tensor(kv_len, device="cuda").reshape(-1).expand(b) == 0
+            if torch.count_nonzero(out[empty]).item():
+                raise AssertionError(f"decode {dtype} kv_len={kv_len}: kv_len 0 not exactly 0")
+        # the chunks are merged in a fixed order, with no atomics: two calls
+        # on the same inputs agree bit for bit
+        b, L, hq, hkv, hd, kv_len = SERVE_ROUND
+        q = _rand((b, 1, hq, hd), dtype, gen)
+        k = _rand((b, L, hkv, hd), dtype, gen)
+        v = _rand((b, L, hkv, hd), dtype, gen)
+        lens = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        if not torch.equal(decode_attention_kernel(q, k, v, lens),
+                           decode_attention_kernel(q, k, v, lens)):
+            raise AssertionError(f"decode {dtype} kv_len={kv_len}: two launches differ")
+        log(f"[kernels] decode_attention {dtype}: {len(DECODE_CASES)} cases, "
+            f"max abs err {worst:.3g} (tol {tol}); kv_len 0 gives exactly 0; two "
+            f"launches bit-identical at kv_len {kv_len}")
         errs["decode_attention"] = max(errs["decode_attention"], worst)
     return errs
 
@@ -350,16 +386,19 @@ def phase_kernels_bwd() -> dict:
             f"f32: {TOL_F32_X30 * 30:.0e}); stale tails exactly zero")
         errs = {k: max(errs[k], worst[k]) for k in errs}
 
-    # dK/dV is deterministic: each output element written once by one block,
-    # no atomics, so two launches on the same inputs agree bit for bit
+    # dQ and dK/dV are deterministic: each output element written once by one
+    # block, no atomics, so two launches on the same inputs agree bit for bit
     for (b, l, ctx, hq, hkv, hd, sc, tail) in (TRAIN_CASES[0], GQA_CTX_CASE):
         args = _bwd_inputs(b, l, ctx, hq, hkv, hd, sc, torch.bfloat16, gen, tail) + (ctx,)
-        first, second = terapipe_attention_dkv(*args), terapipe_attention_dkv(*args)
-        if not all(torch.equal(x, y) for x, y in zip(first, second)):
-            raise AssertionError(f"dK/dV b={b} l={l} ctx={ctx}: two launches differ")
-        del args, first, second
-    log("[kernels] terapipe_attention_dkv bf16: two launches bit-identical (training "
-        "shape; GQA l=200 at ctx=100)")
+        for name, fn in (("dQ", lambda *a: (terapipe_attention_dq(*a),)),
+                         ("dK/dV", terapipe_attention_dkv)):
+            first, second = fn(*args), fn(*args)
+            if not all(torch.equal(x, y) for x, y in zip(first, second)):
+                raise AssertionError(f"{name} b={b} l={l} ctx={ctx}: two launches differ")
+            del first, second
+        del args
+    log("[kernels] terapipe_attention_dq and _dkv bf16: two launches bit-identical "
+        "(training shape; GQA l=200 at ctx=100)")
 
     # the autograd Function (kernels both ways, a strided cotangent) against
     # autograd through the plain forward
@@ -612,8 +651,9 @@ TOP_KERNELS = 15
 def _profile_step(cfg) -> None:
     """One step of the timed run's shape (launch.train.train_step, after one
     unprofiled step) under torch.profiler with CUDA activities: prints the
-    device kernels that took the most time, each with its share of the
-    step's wall time, and the device's busy share."""
+    device kernels that took the most time and the repo's own kernels, each
+    with its rank and share of the step's wall time, and the device's busy
+    share."""
     from torch.profiler import ProfilerActivity, profile
 
     model = build_model(cfg)
@@ -642,10 +682,11 @@ def _profile_step(cfg) -> None:
         f"(torch.profiler, CUDA activities): wall {wall_us / 1e3:.1f} ms, device kernels "
         f"{busy / 1e3:.1f} ms ({busy / wall_us:.1%} of the wall time) over "
         f"{sum(n for n, _ in per_name.values())} launches of {len(per_name)} kernels")
-    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:TOP_KERNELS]
-    for rank, (name, (n, us)) in enumerate(top, 1):
-        log(f"[profile] {rank:2d}. {us / 1e3:9.3f} ms {us / wall_us:6.1%}  x{n:<5d} "
-            f"{name[:150]}")
+    ranked = sorted(per_name.items(), key=lambda kv: -kv[1][1])
+    for rank, (name, (n, us)) in enumerate(ranked, 1):
+        if rank <= TOP_KERNELS or re.search(r"\b(fwd|dq|dkv)_kernel|decode_\w*kernel", name):
+            log(f"[profile] {rank:2d}. {us / 1e3:9.3f} ms {us / wall_us:6.1%}  x{n:<5d} "
+                f"{name[:150]}")
 
 
 # --------------------------------------------------------------- 5. times
@@ -681,8 +722,7 @@ def phase_times(errs: dict, launches: dict) -> list:
         shape=f"B={b} l={l} ctx={ctx} Hq={hq} Hkv={hkv} hd={hd} bf16"))
 
     # decode: one round of the serving engine, 4 slots at mixed depths
-    b, L = 4, 2048
-    kv_len = [1056, 544, 800, 160]
+    b, L, hq, hkv, hd, kv_len = SERVE_ROUND
     q = _rand((b, 1, hq, hd), dt, gen)
     k = _rand((b, L, hkv, hd), dt, gen)
     v = _rand((b, L, hkv, hd), dt, gen)

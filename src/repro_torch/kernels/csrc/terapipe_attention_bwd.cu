@@ -25,8 +25,33 @@
 // toward zero where the TPU code floors.  ctx is a runtime argument, so one
 // build serves every offset.
 //
-// dkv_kernel_bf16 (bf16 inputs): every product on the tensor cores
-// (mma.m16n8k16, bf16 operands, f32 accumulators; mma.cuh).
+// dq_kernel_bf16 and dkv_kernel_bf16 (bf16 inputs): every product on the
+// tensor cores (mma.m16n8k16, bf16 operands, f32 accumulators; mma.cuh).
+// Tiles stay bf16 in shared memory, rows padded by 8 so the ldmatrix loads
+// are free of bank conflicts.  Masked probabilities are selected as 0, never
+// multiplied: 0 * NaN is NaN in an mma, and cp.async zero-fills the rows past
+// l and the keys past the frontier, so no stale shared memory meets a 0.
+//
+// dq_kernel_bf16: the forward's tiling with P.V replaced by two products.
+//  * one block per (b, hq, 64-row q tile), 4 warps of 16 query rows; q tiles
+//    are issued longest causal frontier first (grid z reversed).  Q and dO
+//    are staged once; 64-key K and V tiles arrive through a two-stage
+//    cp.async ring up to the tile's frontier ctx + min(q0 + 64, l); each warp
+//    skips the tiles past its own 16 rows' frontier;
+//  * the A fragments of Q and dO are read from shared memory (ldmatrix) at
+//    each k-step, not held: the dQ accumulator (hd f32 registers a lane) and
+//    the S and dP tiles (64 more) leave no room for them at hd 128, where
+//    holding Q alone spilled (chip_variants.py); lse (in log2 units) and
+//    delta of the warp's rows are in registers;
+//  * S = Q.K^T and dP = dO.V^T with K and V as "col" B operands (ldmatrix);
+//    P = exp2(S*scale*log2e - lse*log2e), masked only in tiles that cross
+//    the diagonal or hold rows at and past l; dS = P * (dP - delta) in f32;
+//    dQ += dS.K with dS rounded to bf16 once and reused from registers as the
+//    A operand (K through ldmatrix.trans).  One rounding is enough here: K
+//    is not scaled, so no large rows cancel as Q's do in dK.  dQ is scaled
+//    once, at the end.
+//
+// dkv_kernel_bf16:
 //  * one block per (b, hkv, 64-key tile), 4 warps of 16 keys; key tiles are
 //    issued in order, so the low tiles, which walk the most query rows, go
 //    first.  The block walks the rep query heads of its group and, for each,
@@ -34,8 +59,7 @@
 //    the tiles that do not reach its own 16 keys;
 //  * K and V are staged once; Q, dO (bf16) and lse, delta (f32) of each q
 //    tile arrive through a two-stage cp.async ring, so the next tile's copy
-//    overlaps this tile's products.  Rows padded by 8 bf16: ldmatrix loads
-//    free of bank conflicts;
+//    overlaps this tile's products;
 //  * keys are the M dimension of every product: S^T = K.Q^T, then
 //    P^T = exp(scale*S^T - lse[col]) (masked only in tiles that cross the
 //    diagonal or hold rows at and past l); dV += P^T.dO with P^T rounded to
@@ -43,14 +67,14 @@
 //    dP^T = V.dO^T; dS^T = P^T * (dP^T - delta[col]) in f32; dK += dS^T.Q
 //    with dS^T from registers as a sum of two bf16 parts, hi + lo (two
 //    products): a single bf16 rounding of dS^T lost to cancellation across
-//    large q rows (logits x30).  dK is scaled once, at the end.  Rounding
-//    P^T to bf16 and dS^T to a bf16 pair are the numerical changes from the
-//    f32 SIMT kernel;
+//    large q rows (logits x30).  dK is scaled once, at the end;
 //  * the dK and dV accumulators take hd f32 registers a lane; q tiles are 64
 //    rows up to hd 64 and 32 rows above, which keeps the scores in registers
 //    beside them.
+// Rounding P, P^T and dS to bf16 (dS^T to a bf16 pair) are the numerical
+// changes from the f32 SIMT kernels.
 //
-// dq_kernel (bf16 and f32) and dkv_kernel_f32 (f32): f32 SIMT FMAs out of
+// dq_kernel_f32 and dkv_kernel_f32 (f32 inputs): f32 SIMT FMAs out of
 // shared memory; the tensor cores have no f32 product of f32 accuracy:
 //  * dQ: one block per (b, hq, 32-row q tile), walking 32-key K/V tiles up
 //    to the tile's causal frontier ctx + min(q0 + 32, l); dK/dV: one block
@@ -74,7 +98,8 @@ using namespace repro;
 using bf16 = __nv_bfloat16;
 
 // ------------------------------------------------------------ bf16, mma
-constexpr int kMmaBK = 64;              // keys per block (16 per warp)
+constexpr int kMmaBK = 64;              // keys per dK/dV block (16 per warp), per dQ K/V tile
+constexpr int kMmaBQ = 64;              // query rows per dQ block (16 per warp)
 constexpr int kMmaThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -279,7 +304,172 @@ dkv_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ------------------------------------------------- dQ (both), dK/dV f32: SIMT
+template <int HD>
+constexpr size_t dq_smem_bytes() {
+  return size_t(2 * kMmaBQ + 2 * 2 * kMmaBK) * (HD + kPad) * sizeof(bf16);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+dq_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               bf16* __restrict__ dq, int l, int n_heads, int rep, int ctx, int64_t q_sb,
+               int64_t q_ss, int64_t k_sb, int64_t k_ss, int64_t v_sb, int64_t v_ss,
+               int64_t do_sb, int64_t do_ss, int64_t dq_sb, int64_t dq_ss, float scale,
+               float scale_log2) {
+  constexpr int LD = HD + kPad;
+  constexpr int KT = HD / 16;           // k-steps of Q.K^T and dO.V^T
+  constexpr int NS = kMmaBK / 8;        // n-tiles of S and dP (8 keys each)
+  constexpr int NO = HD / 8;            // n-tiles of dQ (8 dims each)
+  extern __shared__ uint4 smem_u4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_u4);
+  bf16* dOs = Qs + kMmaBQ * LD;
+  bf16* Ks = dOs + kMmaBQ * LD;         // [stage][kMmaBK][LD]
+  bf16* Vs = Ks + 2 * kMmaBK * LD;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int iq = gridDim.z - 1 - blockIdx.z;   // longest frontier first
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const LaneOffsets lo(lane);
+  const int q0 = iq * kMmaBQ;
+  const int kv_end = ctx + min(q0 + kMmaBQ, l);   // causal frontier of this q tile
+  const int n_tiles = (kv_end + kMmaBK - 1) / kMmaBK;
+  const int w0 = q0 + warp * 16;                 // first row of this warp
+  const bool live = w0 < l;                      // the warp has rows to compute
+  const int w_end = ctx + min(w0 + 16, l);       // this warp's own frontier
+
+  const bf16* kb = k + b * k_sb + int64_t(h / rep) * HD;
+  const bf16* vb = v + b * v_sb + int64_t(h / rep) * HD;
+  auto load_kv = [&](int tile) {
+    const int t0 = tile * kMmaBK, stage = tile & 1;
+    cp_async_tile<kMmaBK, HD, kMmaThreads>(Ks + stage * kMmaBK * LD, kb + t0 * k_ss, k_ss,
+                                           kv_end - t0, tid);
+    cp_async_tile<kMmaBK, HD, kMmaThreads>(Vs + stage * kMmaBK * LD, vb + t0 * v_ss, v_ss,
+                                           kv_end - t0, tid);
+  };
+  cp_async_tile<kMmaBQ, HD, kMmaThreads>(Qs, q + b * q_sb + q0 * q_ss + int64_t(h) * HD,
+                                         q_ss, l - q0, tid);
+  cp_async_tile<kMmaBQ, HD, kMmaThreads>(dOs, dout + b * do_sb + q0 * do_ss + int64_t(h) * HD,
+                                         do_ss, l - q0, tid);
+  load_kv(0);
+  cp_async_commit();
+
+  // lse (in log2 units) and delta of rows g and g + 8; 0 for pad rows, which
+  // the mask covers
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + g + 8 * r;
+    const int64_t at = (int64_t(b) * n_heads + h) * l + row;
+    lse2[r] = row < l ? lse[at] * kLog2e : 0.f;
+    dl[r] = row < l ? delta[at] : 0.f;
+  }
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) load_kv(it + 1);   // into the stage freed last iteration
+    cp_async_commit();
+    cp_async_wait<1>();                      // tile it (and Q, dO) have landed
+    __syncthreads();
+    const int t0 = it * kMmaBK;
+    if (live && t0 < w_end) {
+      const bf16* Kt = Ks + (it & 1) * kMmaBK * LD;
+      const bf16* Vt = Vs + (it & 1) * kMmaBK * LD;
+
+      // S = Q.K^T (K as the "col" B operand)
+      float sc[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t qa[4];
+        ldmatrix_x4(qa, Qs + (warp * 16 + lo.a_row) * LD + kk * 16 + lo.a_col);
+#pragma unroll
+        for (int jp = 0; jp < NS / 2; ++jp) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, Kt + (jp * 16 + lo.b_row) * LD + kk * 16 + lo.b_col);
+          mma_bf16(sc[2 * jp], qa, bk[0], bk[1]);
+          mma_bf16(sc[2 * jp + 1], qa, bk[2], bk[3]);
+        }
+      }
+
+      // P = exp2(S*scale*log2e - lse*log2e); the mask selects 0 only where
+      // the tile crosses the diagonal of this warp's rows or holds rows at
+      // and past l
+      const bool edge = t0 + kMmaBK - 1 > ctx + w0 || w0 + 16 > l;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(sc[j][e] * scale_log2 - lse2[e >> 1]);
+          if (edge) {
+            const int row = w0 + g + (e >> 1) * 8;
+            const int kpos = t0 + j * 8 + 2 * t4 + (e & 1);
+            if (!(row < l && kpos <= ctx + row)) p = 0.f;
+          }
+          sc[j][e] = p;
+        }
+      }
+
+      // dP = dO.V^T
+      float dpt[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t da[4];
+        ldmatrix_x4(da, dOs + (warp * 16 + lo.a_row) * LD + kk * 16 + lo.a_col);
+#pragma unroll
+        for (int jp = 0; jp < NS / 2; ++jp) {
+          uint32_t bv[4];
+          ldmatrix_x4(bv, Vt + (jp * 16 + lo.b_row) * LD + kk * 16 + lo.b_col);
+          mma_bf16(dpt[2 * jp], da, bv[0], bv[1]);
+          mma_bf16(dpt[2 * jp + 1], da, bv[2], bv[3]);
+        }
+      }
+
+      // dS = P * (dP - delta), in f32
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] *= dpt[j][e] - dl[e >> 1];
+
+      // dQ += dS.K: dS from registers, rounded to bf16 once (K is not scaled,
+      // so no large rows cancel as Q's do in dK), K through ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        uint32_t dsa[4];
+        pack_a(dsa, sc[2 * kk], sc[2 * kk + 1]);
+#pragma unroll
+        for (int dp = 0; dp < HD / 16; ++dp) {
+          uint32_t bk[4];
+          ldmatrix_x4_trans(bk, Kt + (kk * 16 + lo.bt_row) * LD + dp * 16 + lo.bt_col);
+          mma_bf16(acc[2 * dp], dsa, bk[0], bk[1]);
+          mma_bf16(acc[2 * dp + 1], dsa, bk[2], bk[3]);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with stage it & 1 before it is refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + g + 8 * r;
+    if (row >= l) continue;
+    bf16* out = dq + b * dq_sb + row * dq_ss + int64_t(h) * HD + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(out + n * 8) =
+          pack_bf16(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+  }
+}
+
+// ------------------------------------------------------------- f32, SIMT
 constexpr int kBQ = 32;                 // query rows per tile
 constexpr int kBK = 32;                 // keys per tile
 constexpr int kWarps = 4;
@@ -291,10 +481,10 @@ constexpr size_t smem_bytes() {
   return size_t(2 * kBQ + 2 * kBK) * (HD + 4) * sizeof(float) + 2 * kBQ * sizeof(float);
 }
 
-// Stage 32 rows of a (.., rows, heads*hd) tensor, starting at `src`, as f32
-// into shared memory with row pitch HD + 4; rows at and past n_valid are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void stage(float* dst, const T* src, int64_t row_stride,
+// Stage 32 rows of a (.., rows, heads*hd) tensor, starting at `src`, into
+// shared memory with row pitch HD + 4; rows at and past n_valid are zero.
+template <int HD>
+__device__ __forceinline__ void stage(float* dst, const float* src, int64_t row_stride,
                                       int n_valid, int tid) {
   constexpr int LD = HD + 4;
   static_assert(32 * (HD / 4) % kThreads == 0, "tile loads divide evenly");
@@ -303,7 +493,7 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int64_t row_stri
     const int idx = tid + it * kThreads;
     const int r = idx / (HD / 4), c = (idx % (HD / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_valid) x = load4(src + r * row_stride + c);
+    if (r < n_valid) x = *reinterpret_cast<const float4*>(src + r * row_stride + c);
     *reinterpret_cast<float4*>(dst + r * LD + c) = x;
   }
 }
@@ -332,14 +522,14 @@ __device__ __forceinline__ void dots(const float* A1, const float* B1, const flo
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, T* __restrict__ dq, int l, int n_heads,
-          int rep, int ctx, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
-          int64_t v_sb, int64_t v_ss, int64_t do_sb, int64_t do_ss, int64_t dq_sb,
-          int64_t dq_ss, float scale) {
+dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              float* __restrict__ dq, int l, int n_heads, int rep, int ctx, int64_t q_sb,
+              int64_t q_ss, int64_t k_sb, int64_t k_ss, int64_t v_sb, int64_t v_ss,
+              int64_t do_sb, int64_t do_ss, int64_t dq_sb, int64_t dq_ss, float scale) {
   constexpr int LD = HD + 4;
   constexpr int NDL = (HD + 31) / 32;   // output dims per lane
   extern __shared__ float4 smem4[];
@@ -353,10 +543,10 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int q0 = iq * kBQ;
   const int kv_end = ctx + min(q0 + kBQ, l);   // causal frontier of this q tile
 
-  stage<T, HD>(Qs, q + b * q_sb + q0 * q_ss + int64_t(h) * HD, q_ss, l - q0, tid);
-  stage<T, HD>(dOs, dout + b * do_sb + q0 * do_ss + int64_t(h) * HD, do_ss, l - q0, tid);
-  const T* kb = k + b * k_sb + int64_t(h / rep) * HD;
-  const T* vb = v + b * v_sb + int64_t(h / rep) * HD;
+  stage<HD>(Qs, q + b * q_sb + q0 * q_ss + int64_t(h) * HD, q_ss, l - q0, tid);
+  stage<HD>(dOs, dout + b * do_sb + q0 * do_ss + int64_t(h) * HD, do_ss, l - q0, tid);
+  const float* kb = k + b * k_sb + int64_t(h / rep) * HD;
+  const float* vb = v + b * v_sb + int64_t(h / rep) * HD;
 
   const int row0 = warp * kRows;
   float lse_r[kRows], dl_r[kRows], acc[kRows][NDL];
@@ -372,8 +562,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
   for (int t0 = 0; t0 < kv_end; t0 += kBK) {
     __syncthreads();   // the previous tile is consumed (and Q, dO are staged)
-    stage<T, HD>(Ks, kb + t0 * k_ss, k_ss, kv_end - t0, tid);
-    stage<T, HD>(Vs, vb + t0 * v_ss, v_ss, kv_end - t0, tid);
+    stage<HD>(Ks, kb + t0 * k_ss, k_ss, kv_end - t0, tid);
+    stage<HD>(Vs, vb + t0 * v_ss, v_ss, kv_end - t0, tid);
     __syncthreads();
 
     // lane j <-> key t0 + j: s = q.k, dp = dO.v for each of the warp's rows
@@ -411,11 +601,11 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int r = 0; r < kRows; ++r) {
     const int row = q0 + row0 + r;
     if (row >= l) continue;
-    T* out = dq + b * dq_sb + row * dq_ss + int64_t(h) * HD;
+    float* out = dq + b * dq_sb + row * dq_ss + int64_t(h) * HD;
 #pragma unroll
     for (int i = 0; i < NDL; ++i) {
       const int d = lane + 32 * i;
-      if (d < HD) store1(out + d, acc[r][i] * scale);
+      if (d < HD) out[d] = acc[r][i] * scale;
     }
   }
 }
@@ -452,8 +642,8 @@ dkv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < NDL; ++i) acc_k[r][i] = acc_v[r][i] = 0.f;
 
   if (k0 < valid_end) {
-    stage<float, HD>(Ks, k + b * k_sb + k0 * k_ss + int64_t(hk) * HD, k_ss, valid_end - k0, tid);
-    stage<float, HD>(Vs, v + b * v_sb + k0 * v_ss + int64_t(hk) * HD, v_ss, valid_end - k0, tid);
+    stage<HD>(Ks, k + b * k_sb + k0 * k_ss + int64_t(hk) * HD, k_ss, valid_end - k0, tid);
+    stage<HD>(Vs, v + b * v_sb + k0 * v_ss + int64_t(hk) * HD, v_ss, valid_end - k0, tid);
     // first q tile whose frontier ctx + min((iq+1)*32, l) passes k0
     const int iq_first = max(k0 - ctx, 0) / kBQ;
     const int n_qt = (l + kBQ - 1) / kBQ;
@@ -465,8 +655,8 @@ dkv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int iq = iq_first; iq < n_qt; ++iq) {
         const int q0 = iq * kBQ;
         __syncthreads();   // the previous q tile is consumed (and K, V are staged)
-        stage<float, HD>(Qs, qh + q0 * q_ss, q_ss, l - q0, tid);
-        stage<float, HD>(dOs, doh + q0 * do_ss, do_ss, l - q0, tid);
+        stage<HD>(Qs, qh + q0 * q_ss, q_ss, l - q0, tid);
+        stage<HD>(dOs, doh + q0 * do_ss, do_ss, l - q0, tid);
         if (tid < kBQ) {
           const bool in = q0 + tid < l;
           lse_s[tid] = in ? lse[row_at + q0 + tid] : 0.f;
@@ -544,20 +734,38 @@ cudaError_t opt_in(Kern kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
 }
 
-template <typename T, int HD>
-cudaError_t launch_dq(const Args& a) {
-  auto kern = dq_kernel<T, HD>;
+template <int HD>
+cudaError_t launch_dq_f32(const Args& a) {
+  auto kern = dq_kernel_f32<HD>;
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = opt_in(kern, smem);
   if (err != cudaSuccess) return err;
   const long long* st = a.st;
   const dim3 grid((a.l + kBQ - 1) / kBQ, a.Hq, a.B);
   kern<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.o1), a.l, a.Hq, a.Hq / a.Hkv,
-      a.ctx, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      rsqrtf(float(HD)));
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(a.o1), a.l, a.Hq, a.Hq / a.Hkv, a.ctx, st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7], st[8], st[9], rsqrtf(float(HD)));
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dq_bf16(const Args& a) {
+  auto kern = dq_kernel_bf16<HD>;
+  const size_t smem = dq_smem_bytes<HD>();
+  cudaError_t err = opt_in(kern, smem);
+  if (err != cudaSuccess) return err;
+  const long long* st = a.st;
+  const dim3 grid(a.Hq, a.B, (a.l + kMmaBQ - 1) / kMmaBQ);
+  kern<<<grid, kMmaThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.o1), a.l, a.Hq, a.Hq / a.Hkv, a.ctx, st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7], st[8], st[9], rsqrtf(float(HD)),
+      rsqrtf(float(HD)) * kLog2e);
   return cudaGetLastError();
 }
 
@@ -599,17 +807,16 @@ cudaError_t launch_dkv_bf16(const Args& a) {
 
 #define HEAD_DIMS(CASE) CASE(16) CASE(32) CASE(64) CASE(96) CASE(128) CASE(160)
 
-template <typename T>
-cudaError_t dispatch_dq(int hd, const Args& a) {
+// bf16 -> the tensor-core kernels, f32 -> the SIMT kernels; nothing else.
+cudaError_t dispatch_dq(bool is_bf16, int hd, const Args& a) {
   switch (hd) {
-#define CASE(HD) case HD: return launch_dq<T, HD>(a);
+#define CASE(HD) case HD: return is_bf16 ? launch_dq_bf16<HD>(a) : launch_dq_f32<HD>(a);
     HEAD_DIMS(CASE)
 #undef CASE
     default: return cudaErrorInvalidValue;
   }
 }
 
-// bf16 -> the tensor-core kernel, f32 -> the SIMT kernel; nothing else.
 cudaError_t dispatch_dkv(bool is_bf16, int hd, const Args& a) {
   switch (hd) {
 #define CASE(HD) case HD: return is_bf16 ? launch_dkv_bf16<HD>(a) : launch_dkv_f32<HD>(a);
@@ -634,7 +841,7 @@ extern "C" int terapipe_attention_dq(
   const long long st[10] = {q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, do_sb, do_ss, dq_sb, dq_ss};
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, B, l, 0, Hq, Hkv, ctx, st,
                static_cast<cudaStream_t>(stream)};
-  return int(is_bf16 ? dispatch_dq<bf16>(hd, a) : dispatch_dq<float>(hd, a));
+  return int(dispatch_dq(is_bf16 != 0, hd, a));
 }
 
 // As terapipe_attention_dq, with Sk the keys of k/v and dk, dv (B, Sk, Hkv, hd)
