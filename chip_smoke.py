@@ -23,7 +23,9 @@ result line):
                head dim 16-160, an 8-token chunk at ctx 250) and at the
                training step's own shape (B 4, l 2048, Hq = Hkv = 16, hd
                128); two launches of decode, dQ and dK/dV must agree bit for
-               bit; the autograd Function against autograd of the plain op;
+               bit; the pipelined step's slices (B 4, l 256 at ctx 256 and
+               1792, Sk = ctx + l); the autograd Function against autograd
+               of the plain op;
                a bf16 row stride that is not a multiple of 8 is refused;
   3. serve   — qwen3-0.6b at full width (28 layers, random weights from a
                seeded generator, bf16, use_kernel=True) behind the
@@ -38,21 +40,39 @@ result line):
                5 AdamW steps at batch 4 x seq 2048 through
                repro_torch.launch.train.main --use-kernel; losses finite
                and within 1 of ln(vocab); launches must equal the remat
-               formula (2 forward, 1 dQ, 1 dK/dV per layer per step); then
-               one more step under torch.profiler: the 15 device kernels
-               that took the most time, and the repo's own kernels wherever
-               they rank, with their share of the step;
-  5. times   — each kernel at a main-path shape (CUDA events, median of 30
+               formula (2 forward, 1 dQ, 1 dK/dV per layer per step);
+  5. pipeline — the token-slice pipeline (core/pipeline.py, K = 4 virtual
+               ranks, contiguous schedule) on gpt3-1b at full width, after
+               the gspmd run's state is freed: one stage's (6 blocks)
+               forward at batch 4, ctx 0, over l = 32..2048 (the paper's
+               Fig. 3), with the H100 spec's efficiency and occupancy floor
+               fitted to its CUDA-graph times; the pipelined loss and
+               gradients (kernels; M 8, and fixed non-uniform slices)
+               against the plain paths at batch 1 x seq 2048, within the
+               bounds of phase 4; 5 steps of launch.train.main --mode
+               terapipe --use-kernel --token-slices 8, then 5 with
+               --dp-plan, at batch 4 x seq 2048, each with the launch
+               counts D*M*n_layers*(1 + remat) forward, D*M*n_layers dQ and
+               dK/dV; the kernel cost table (measure_kernel_cost_table) at a
+               few (l, ctx);
+  6. times   — each kernel at a main-path shape (CUDA events, median of 30
                after warm-up, L2 flushed before each launch) beside its
                bound, its plain version and one PyTorch library call; the
                forward also at the training shape (train_ms, train_bound_ms,
-               train_library_ms).
+               train_library_ms);
+  7. profiles — one gspmd step and one pipelined step (M 8) under
+               torch.profiler: the 15 device kernels that took the most
+               time and the repo's own kernels wherever they rank, with
+               their share of the step, the device's busy share, and the
+               host operators that took the most time.  Last, because a
+               profiled region slows the process's later eager launches.
 
 The line before last is one JSON object {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA GPU and nvcc.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -61,6 +81,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Dict, Optional
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -69,6 +90,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.cost_model import (H100, AnalyticCostModel,  # noqa: E402
+                                         fit_efficiency_and_floor,
+                                         measure_kernel_cost_table)
+from repro_torch.core.pipeline import (TeraPipeConfig, make_terapipe_loss,  # noqa: E402
+                                       make_terapipe_value_and_grad, value_and_grad)
 from repro_torch.data.pipeline import DataPipeline, SyntheticSource  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import CHUNK, decode_attention_kernel  # noqa: E402
@@ -215,9 +241,20 @@ def _err(got, want, tol, what):
 
 
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 4, 2048
+PIPE_RANKS = train_launch.PIPE_RANKS      # virtual ranks of the pipelined step
 # one layer's attention in the gpt3-1b training step (Hq = Hkv = 16, hd 128),
 # as the main path calls it (Sk = l) and with a 37-key stale tail
 TRAIN_CASES = [(TRAIN_BATCH, TRAIN_SEQ, 0, 16, 16, 128, 1.0, tail) for tail in (0, 37)]
+PIPE_SLICES = 8                           # M of the pipelined step
+# one layer's attention in the pipelined step (M 8): a 256-token slice at the
+# second slice's ctx and at the last one's, over the cache rows [0, ctx + l)
+PIPE_CASES = [(TRAIN_BATCH, TRAIN_SEQ // PIPE_SLICES, ctx, 16, 16, 128, 1.0, 0)
+              for ctx in (TRAIN_SEQ // PIPE_SLICES, TRAIN_SEQ - TRAIN_SEQ // PIPE_SLICES)]
+
+
+def _main_path_case(b, l) -> bool:
+    """A case at the training or the pipelined step's own shape (logged)."""
+    return b == TRAIN_BATCH and l in (TRAIN_SEQ, TRAIN_SEQ // PIPE_SLICES)
 
 
 def prefill_cases():
@@ -232,8 +269,9 @@ def prefill_cases():
 
 
 def fwd_cases():
-    """prefill_cases() plus the training shape, with and without a tail."""
-    return prefill_cases() + TRAIN_CASES
+    """prefill_cases() plus the training shape, with and without a tail, and
+    the pipelined step's slices."""
+    return prefill_cases() + TRAIN_CASES + PIPE_CASES
 
 
 def _check_bf16_row_stride() -> None:
@@ -290,7 +328,7 @@ def phase_kernels() -> dict:
             e_out = _err(out, ref_out, tol, what + " O")
             e_lse = _err(lse, ref_lse, tol, what + " lse")
             worst = max(worst, e_out, e_lse)
-            if b == TRAIN_BATCH and l == TRAIN_SEQ:
+            if _main_path_case(b, l):
                 log(f"[kernels] {what}: max abs err O {e_out:.3g}, lse {e_lse:.3g} (tol {tol})")
             del out, lse, ref_out, ref_lse
         tol = TOL[dtype]
@@ -336,9 +374,10 @@ GQA_CTX_CASE = (2, 200, 100, 16, 4, 128, 1.0, 37)
 
 def bwd_cases():
     """prefill_cases() plus a ragged 33-row slice, a GQA slice whose ctx is
-    not a multiple of the dK/dV kernel's 64-key tile, and the training
-    shape, with and without a tail."""
-    return prefill_cases() + [(2, 33, 17, 8, 2, 64, 1.0, 37), GQA_CTX_CASE] + TRAIN_CASES
+    not a multiple of the dK/dV kernel's 64-key tile, the training shape,
+    with and without a tail, and the pipelined step's slices."""
+    return (prefill_cases() + [(2, 33, 17, 8, 2, 64, 1.0, 37), GQA_CTX_CASE] + TRAIN_CASES
+            + PIPE_CASES)
 
 
 def _bwd_inputs(b, l, ctx, hq, hkv, hd, sc, dtype, gen, tail=37):
@@ -373,7 +412,7 @@ def phase_kernels_bwd() -> dict:
                  _err(dv, rdv, tol, what + " dV")]
             worst["terapipe_attention_dq"] = max(worst["terapipe_attention_dq"], e[0])
             worst["terapipe_attention_dkv"] = max(worst["terapipe_attention_dkv"], *e[1:])
-            if sc > 1 or (b == TRAIN_BATCH and l == TRAIN_SEQ):
+            if sc > 1 or _main_path_case(b, l):
                 log(f"[kernels] {what}: max abs err dQ {e[0]:.3g}, dK {e[1]:.3g}, "
                     f"dV {e[2]:.3g} (tol {tol})")
             stale = torch.cat([dk[:, ctx + l:], dv[:, ctx + l:]])
@@ -552,13 +591,25 @@ def _rel(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def _check_train_against_plain(cfg) -> int:
+def _check_train_against_plain(cfg, pipelined: Optional[Dict[str, TeraPipeConfig]] = None
+                               ) -> int:
     """One loss and all its gradients at batch 1 x seq 2048 from one seeded
-    init: through the kernels, through the plain attention path, and through
-    the plain path in float32.  Returns the number of parameters."""
-    variants = {"kernel": cfg.replace(use_kernel=True), "plain": cfg.replace(use_kernel=False),
-                "plain f32": cfg.replace(use_kernel=False, dtype=torch.float32)}
+    init: through the kernels (the gspmd step, or the pipelined step of each
+    of ``pipelined``'s configs on PIPE_RANKS ranks), through the plain
+    attention path, and through the plain path in float32; each kernel run
+    is held to the bounds.  Returns the number of parameters."""
+    variants = {"plain": cfg.replace(use_kernel=False),
+                "plain f32": cfg.replace(use_kernel=False, dtype=torch.float32),
+                "kernel": cfg.replace(use_kernel=True)}
     models = {name: build_model(c) for name, c in variants.items()}
+    losses = {name: m.loss for name, m in models.items()}
+    if pipelined is not None:
+        del losses["kernel"]
+        for label, tcfg in pipelined.items():
+            losses[f"pipelined ({label}) kernels"] = make_terapipe_loss(
+                models["kernel"], tcfg, TRAIN_SEQ, 1, PIPE_RANKS)
+    else:
+        losses["kernels"] = losses.pop("kernel")
     params = models["kernel"].init(seed=0)
     named = list(tree_items(params))
     for _, p in named:
@@ -566,46 +617,38 @@ def _check_train_against_plain(cfg) -> int:
     toks = DataPipeline(SyntheticSource(cfg.vocab_size, 1), 1, TRAIN_SEQ).batch_at(0)
     batch = {k: torch.from_numpy(a).cuda() for k, a in toks.items()}
     out = {}
-    for name, m in models.items():
-        loss = m.loss(params, batch)
+    for name, loss_fn in losses.items():
+        loss = loss_fn(params, batch)
         out[name] = (loss.detach(), torch.autograd.grad(loss, [p for _, p in named]))
-    (lk, gk), (lp, gp), (l32, g32) = out["kernel"], out["plain"], out["plain f32"]
-    if not (torch.isfinite(lk) and all(torch.isfinite(g).all() for g in gk)):
-        raise AssertionError("train: non-finite loss or gradients through the kernels")
-    rel_loss = ((lk - lp).abs() / lp.abs()).item()
-    vs_plain = [_rel(a, b) for a, b in zip(gk, gp)]
-    k32 = [_rel(a, b) for a, b in zip(gk, g32)]
+    (lp, gp), (l32, g32) = out.pop("plain"), out.pop("plain f32")
     p32 = [_rel(a, b) for a, b in zip(gp, g32)]
-    wk, wp = max(k32), max(p32)
-    log(f"[train] gpt3-1b FULL, batch 1 x seq {TRAIN_SEQ}: loss kernels {lk.item():.6f}, "
-        f"plain {lp.item():.6f}, plain f32 {l32.item():.6f} (kernels vs plain relative "
-        f"{rel_loss:.3g}, bound {LOSS_REL_BOUND})")
-    log(f"[train] per-leaf |g - g_f32| / |g_f32| over {len(named)} leaves: kernels worst "
-        f"{wk:.3g} ({named[k32.index(wk)][0]}), median {statistics.median(k32):.3g}; plain "
-        f"bf16 worst {wp:.3g} ({named[p32.index(wp)][0]}), median "
-        f"{statistics.median(p32):.3g}; kernels vs plain bf16 worst {max(vs_plain):.3g} "
-        f"(bound: kernels worst <= {GRAD_F32_RATIO} x plain worst)")
-    if rel_loss > LOSS_REL_BOUND or wk > GRAD_F32_RATIO * wp:
-        raise AssertionError("train: the kernel path is off the plain path beyond the bounds")
+    wp = max(p32)
+    for label, (lk, gk) in out.items():
+        if not (torch.isfinite(lk) and all(torch.isfinite(g).all() for g in gk)):
+            raise AssertionError(f"train: non-finite loss or gradients, {label}")
+        rel_loss = ((lk - lp).abs() / lp.abs()).item()
+        vs_plain = [_rel(a, b) for a, b in zip(gk, gp)]
+        k32 = [_rel(a, b) for a, b in zip(gk, g32)]
+        wk = max(k32)
+        log(f"[train] gpt3-1b FULL, batch 1 x seq {TRAIN_SEQ}: loss {label} {lk.item():.6f}, "
+            f"plain {lp.item():.6f}, plain f32 {l32.item():.6f} (kernels vs plain relative "
+            f"{rel_loss:.3g}, bound {LOSS_REL_BOUND})")
+        log(f"[train] per-leaf |g - g_f32| / |g_f32| over {len(named)} leaves: {label} "
+            f"worst {wk:.3g} ({named[k32.index(wk)][0]}), median {statistics.median(k32):.3g}; "
+            f"plain bf16 worst {wp:.3g} ({named[p32.index(wp)][0]}), median "
+            f"{statistics.median(p32):.3g}; kernels vs plain bf16 worst {max(vs_plain):.3g} "
+            f"(bound: kernels worst <= {GRAD_F32_RATIO} x plain worst)")
+        if rel_loss > LOSS_REL_BOUND or wk > GRAD_F32_RATIO * wp:
+            raise AssertionError(f"train: {label} is off the plain path beyond the bounds")
     return sum(p.numel() for _, p in named)
 
 
-def phase_train():
-    """gpt3-1b at full width: kernels vs plain, then TRAIN_STEPS steps of
-    repro_torch.launch.train.main --use-kernel.  Returns the launches of the
-    main run and its metrics."""
-    cfg = get_config("gpt3-1b")
-    if (cfg.n_layers, cfg.d_model, cfg.hd, cfg.dtype, cfg.remat) != (
-            24, 2048, 128, torch.bfloat16, True):
-        raise AssertionError(f"gpt3-1b FULL changed: {cfg}")
-    torch.cuda.empty_cache()
-    n_params = _check_train_against_plain(cfg)
-    torch.cuda.empty_cache()
-
-    argv = ["--arch", "gpt3-1b", "--use-kernel", "--steps", str(TRAIN_STEPS),
-            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
-            "--seed", "0"]
-    log(f"[train] python -m repro_torch.launch.train {' '.join(argv)}")
+def _train_run(cfg, argv, label, per_step) -> tuple:
+    """``launch.train.main(argv)`` with every launch counter set to 0 just
+    before and read just after: TRAIN_STEPS finite losses within 1 of
+    ln(vocab), launches equal to ``per_step`` (kernel -> count) times the
+    steps.  Returns the counts and the run's metrics."""
+    log(f"[{label}] python -m repro_torch.launch.train {' '.join(argv)}")
     for fn in COUNTERS.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -618,56 +661,88 @@ def phase_train():
     losses = [r["loss"] for r in history]
     ln_v = math.log(cfg.vocab_size)
     if len(losses) != TRAIN_STEPS or not all(abs(x - ln_v) <= 1.0 for x in losses):
-        raise AssertionError(f"train: losses {losses} not {TRAIN_STEPS} finite values "
+        raise AssertionError(f"{label}: losses {losses} not {TRAIN_STEPS} finite values "
                              f"within 1 of ln V = {ln_v:.4f}")
     if final != losses[-1]:
-        raise AssertionError(f"train: main returned {final}, last logged {losses[-1]}")
-    # remat: each layer's forward runs again in the backward (non-reentrant
-    # checkpoint), so 2 forward launches per layer per step; 1 dQ and 1 dK/dV
-    per_step = {"terapipe_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
-                "decode_attention": 0, "terapipe_attention_dq": cfg.n_layers,
-                "terapipe_attention_dkv": cfg.n_layers}
-    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+        raise AssertionError(f"{label}: main returned {final}, last logged {losses[-1]}")
+    want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in COUNTERS}
     if counts != want:
-        raise AssertionError(f"train: launches {counts} != {want}")
+        raise AssertionError(f"{label}: launches {counts} != {want}")
     step_ms = statistics.median(r["ms_per_step"] for r in history[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    metrics = {"step_ms": step_ms, "tok_s": tokens / step_ms * 1e3,
-               "peak_gib": peak_gb, "n_params": n_params,
-               "mfu": 6 * n_params * tokens / (step_ms / 1e3) / PEAK_BF16_FLOPS}
-    log(f"[train] gpt3-1b FULL ({n_params:,} parameters), {TRAIN_STEPS} steps of batch "
-        f"{TRAIN_BATCH} x seq {TRAIN_SEQ}: losses {losses}; step {step_ms:.1f} ms (median "
-        f"of steps 2-{TRAIN_STEPS}), {metrics['tok_s']:.0f} tok/s, peak allocated "
-        f"{peak_gb:.2f} GiB, mfu {metrics['mfu']:.4f} (6*N*tokens per step / 989 "
-        f"TFLOP/s); launches {counts}")
+    metrics = {"step_ms": step_ms, "tok_s": tokens / step_ms * 1e3, "peak_gib": peak_gb}
+    log(f"[{label}] gpt3-1b FULL, {TRAIN_STEPS} steps of batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ}: losses {losses}; step {step_ms:.1f} ms (median of steps "
+        f"2-{TRAIN_STEPS}), {metrics['tok_s']:.0f} tok/s, peak allocated {peak_gb:.2f} GiB; "
+        f"launches {counts}")
+    return counts, metrics
+
+
+def _launches_per_step(cfg, work_items: int) -> dict:
+    """Kernel launches of one training step that runs every layer on
+    ``work_items`` (slice, microbatch) pieces: remat runs each layer's
+    forward again in the backward (non-reentrant checkpoint), so 2 forward
+    launches per layer per piece; 1 dQ and 1 dK/dV."""
+    n = work_items * cfg.n_layers
+    return {"terapipe_attention_fwd": (2 if cfg.remat else 1) * n,
+            "terapipe_attention_dq": n, "terapipe_attention_dkv": n}
+
+
+def _gpt3_1b():
+    cfg = get_config("gpt3-1b")
+    if (cfg.n_layers, cfg.d_model, cfg.hd, cfg.dtype, cfg.remat) != (
+            24, 2048, 128, torch.bfloat16, True):
+        raise AssertionError(f"gpt3-1b FULL changed: {cfg}")
+    return cfg
+
+
+TRAIN_ARGV = ["--arch", "gpt3-1b", "--use-kernel", "--steps", str(TRAIN_STEPS), "--batch",
+              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1", "--seed", "0"]
+
+
+def phase_train():
+    """gpt3-1b at full width: kernels vs plain, then TRAIN_STEPS steps of
+    repro_torch.launch.train.main --use-kernel.  Returns the launches of the
+    main run and its metrics."""
+    cfg = _gpt3_1b()
     torch.cuda.empty_cache()
-    _profile_step(cfg.replace(use_kernel=True))
+    n_params = _check_train_against_plain(cfg)
+    torch.cuda.empty_cache()
+    counts, metrics = _train_run(cfg, TRAIN_ARGV, "train", _launches_per_step(cfg, 1))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    metrics.update(n_params=n_params,
+                   mfu=6 * n_params * tokens / (metrics["step_ms"] / 1e3) / PEAK_BF16_FLOPS)
+    log(f"[train] {n_params:,} parameters; mfu {metrics['mfu']:.4f} (6*N*tokens per step / "
+        f"989 TFLOP/s)")
+    torch.cuda.empty_cache()
     return counts, metrics
 
 
 TOP_KERNELS = 15
+TOP_HOST_OPS = 12
 
 
-def _profile_step(cfg) -> None:
-    """One step of the timed run's shape (launch.train.train_step, after one
-    unprofiled step) under torch.profiler with CUDA activities: prints the
-    device kernels that took the most time and the repo's own kernels, each
-    with its rank and share of the step's wall time, and the device's busy
-    share."""
+def _profile_step(cfg, make_vg, label: str) -> None:
+    """One step of the timed run's shape (launch.train.train_step with the
+    value-and-grad ``make_vg(model)``, after one unprofiled step) under
+    torch.profiler with CUDA activities: prints the device kernels that
+    took the most time and the repo's own kernels, each with its rank and
+    share of the step's wall time, and the device's busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     model = build_model(cfg)
+    vg_fn = make_vg(model)
     opt = adamw(cosine_schedule(3e-4, 20, TRAIN_STEPS))
     state = {"params": tree_map(lambda p: p.requires_grad_(True), model.init(seed=0))}
     state["opt_state"] = opt.init(state["params"])
     data = DataPipeline(SyntheticSource(cfg.vocab_size, 0), TRAIN_BATCH, TRAIN_SEQ)
     batches = [{k: torch.from_numpy(a).cuda() for k, a in data.batch_at(i).items()}
                for i in range(2)]
-    train_launch.train_step(model, opt, state, batches[0])
+    train_launch.train_step(vg_fn, opt, state, batches[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        train_launch.train_step(model, opt, state, batches[1])
+        train_launch.train_step(vg_fn, opt, state, batches[1])
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
     per_name = {}
@@ -678,7 +753,7 @@ def _profile_step(cfg) -> None:
     if not per_name:
         raise AssertionError("train profile: torch.profiler recorded no device kernels")
     busy = sum(us for _, us in per_name.values())
-    log(f"[profile] gpt3-1b FULL, one step of batch {TRAIN_BATCH} x seq {TRAIN_SEQ} "
+    log(f"[profile] gpt3-1b FULL {label}, one step of batch {TRAIN_BATCH} x seq {TRAIN_SEQ} "
         f"(torch.profiler, CUDA activities): wall {wall_us / 1e3:.1f} ms, device kernels "
         f"{busy / 1e3:.1f} ms ({busy / wall_us:.1%} of the wall time) over "
         f"{sum(n for n, _ in per_name.values())} launches of {len(per_name)} kernels")
@@ -687,9 +762,153 @@ def _profile_step(cfg) -> None:
         if rank <= TOP_KERNELS or re.search(r"\b(fwd|dq|dkv)_kernel|decode_\w*kernel", name):
             log(f"[profile] {rank:2d}. {us / 1e3:9.3f} ms {us / wall_us:6.1%}  x{n:<5d} "
                 f"{name[:150]}")
+    # where the host's time goes (self time of each operator on the CPU side,
+    # inflated by the profiler's own cost; the shares are what it shows)
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)
+    for e in host[:TOP_HOST_OPS]:
+        log(f"[profile] host {e.self_cpu_time_total / 1e3:9.3f} ms "
+            f"{e.self_cpu_time_total / wall_us:6.1%}  x{e.count:<6d} {e.key[:100]}")
 
 
-# --------------------------------------------------------------- 5. times
+# ------------------------------------------------------------ 5. pipeline
+# fixed non-uniform slices for the parity check: every slice at its own
+# length, ctx offsets off the kernels' 64-row tiles (584)
+PIPE_NONUNIFORM = (384, 200, 312, 640, 512)
+SWEEP_L = (32, 48, 64, 96, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048)
+COST_PAIRS = ((256, 0), (256, 1024), (256, 1792), (1024, 0), (2048, 0))
+
+
+def _loop_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device ms per call of ``fn`` over ``iters`` back-to-back calls
+    between two CUDA events: the steady state of a loop of such calls, host
+    dispatch included wherever it is the slower side."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, iters: int = 20) -> float:
+    """Device ms per call of ``fn`` replayed from a CUDA graph (captured
+    after a warm-up on a side stream): the same work without the host's
+    dispatch of each launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return _loop_ms(graph.replay, iters)
+
+
+SWEEP_REPEATS = 5
+
+
+def _stage_sweep(cfg) -> tuple:
+    """The paper's Fig. 3 on the card: one pipeline stage (n_layers /
+    PIPE_RANKS blocks, random weights) runs its forward on one slice of l
+    tokens of each of the executor's TRAIN_BATCH sequences (D = 1) at ctx 0
+    through the kernels, for each l in SWEEP_L: replayed from a CUDA graph
+    (the device's own time), and eagerly, as the executor runs it today
+    (median of SWEEP_REPEATS loops of 10 calls; the host's dispatch shows
+    in it).  Returns the H100 spec's (efficiency, occupancy_floor) fitted
+    to the graph times, which repeat from run to run, and prints the fit to
+    the eager times beside it."""
+    layers = cfg.n_layers // PIPE_RANKS
+    model = build_model(cfg.replace(n_layers=layers, use_kernel=True))
+    params = model.init(seed=5)
+    blocks = [tree_map(lambda a: a[i], params["groups"]["blocks"]) for i in range(layers)]
+    block = model.groups[0].sliced_dyn
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b = TRAIN_BATCH
+    # the model's FLOPs of the stage at l (no floor): its time at peak rate
+    ideal = AnalyticCostModel(cfg, dataclasses.replace(H100, efficiency=1.0, occupancy_floor=1),
+                              layers_per_stage=layers, batch=b, include_backward=False)
+    eager, graphed = [], []
+    for l in SWEEP_L:
+        x0 = torch.randn((b, l, cfg.d_model), generator=gen, device="cuda").to(cfg.dtype)
+        ck, cv = model.init_caches(b, l, cfg.dtype)[0]
+
+        @torch.no_grad()
+        def stage():
+            x = x0
+            for i, bp in enumerate(blocks):
+                x, _ = block(bp, x, (ck[i], cv[i]), 0)
+            return x
+
+        ms = statistics.median(_loop_ms(stage, iters=10) for _ in range(SWEEP_REPEATS))
+        g_ms = _graph_ms(stage)
+        eager.append(ms / 1e3)
+        graphed.append(g_ms / 1e3)
+        flops = ideal.t_fwd(l, 0) * H100.peak_flops
+        log(f"[pipeline] stage sweep: {layers} blocks, batch {b}, l {l:5d} at ctx 0: eager "
+            f"{ms:.4f} ms ({flops / (ms / 1e3) / 1e12:.1f} TFLOP/s of model FLOPs), CUDA graph "
+            f"{g_ms:.4f} ms ({flops / (g_ms / 1e3) / 1e12:.1f} TFLOP/s)")
+    eff, floor = fit_efficiency_and_floor(cfg, H100, layers, SWEEP_L, graphed, batch=b)
+    e_eff, e_floor = fit_efficiency_and_floor(cfg, H100, layers, SWEEP_L, eager, batch=b)
+    log(f"[pipeline] H100 spec fitted to the CUDA-graph sweep (batch {b}): efficiency "
+        f"{eff:.4f}, occupancy_floor {floor} (committed: {H100.efficiency}, "
+        f"{H100.occupancy_floor}); to the eager sweep: efficiency {e_eff:.4f}, "
+        f"occupancy_floor {e_floor}")
+    return eff, floor
+
+
+def phase_pipeline() -> dict:
+    """gpt3-1b at full width through the token-slice pipeline on PIPE_RANKS
+    virtual ranks.  Returns the launches of its two main runs."""
+    cfg = _gpt3_1b()
+    torch.cuda.empty_cache()
+    fit = _stage_sweep(cfg)
+    torch.cuda.empty_cache()
+    _check_train_against_plain(cfg, {
+        f"K {PIPE_RANKS}, M {PIPE_SLICES}": TeraPipeConfig(n_token_slices=PIPE_SLICES),
+        f"K {PIPE_RANKS}, slices {list(PIPE_NONUNIFORM)}": TeraPipeConfig(
+            slice_lens=PIPE_NONUNIFORM)})
+    torch.cuda.empty_cache()
+
+    argv = TRAIN_ARGV + ["--mode", "terapipe", "--token-slices", str(PIPE_SLICES)]
+    counts, metrics = _train_run(cfg, argv, "pipeline",
+                                 _launches_per_step(cfg, PIPE_SLICES))
+    torch.cuda.empty_cache()
+
+    slices, plan = train_launch.plan_slices(cfg, TRAIN_SEQ, PIPE_RANKS, H100,
+                                            batch=TRAIN_BATCH)
+    dp_counts, dp_metrics = _train_run(cfg, TRAIN_ARGV + ["--mode", "terapipe", "--dp-plan"],
+                                       "pipeline dp-plan", _launches_per_step(cfg, len(slices)))
+    # the model's own estimate of this step on one card: every stage of
+    # every slice in turn, the whole batch, forward and backward (the
+    # optimizer and the head are not in it)
+    one_card = AnalyticCostModel(cfg, H100, layers_per_stage=cfg.n_layers, batch=TRAIN_BATCH)
+    ctxs = np.cumsum((0,) + slices[:-1])
+    one_card_ms = sum(one_card.t_fwd(l, c) for l, c in zip(slices, ctxs)) * 1e3
+    log(f"[pipeline] dp-plan: slices {list(slices)}; predicted {plan.latency * 1e3:.3f} ms "
+        f"(Eq. 5: {PIPE_RANKS} cards, batch {TRAIN_BATCH}, fwd+bwd), on one card for batch "
+        f"{TRAIN_BATCH} {one_card_ms:.3f} ms (the same model, stages in turn); measured "
+        f"step {dp_metrics['step_ms']:.1f} ms vs uniform M {PIPE_SLICES} "
+        f"{metrics['step_ms']:.1f} ms")
+    torch.cuda.empty_cache()
+
+    table = measure_kernel_cost_table(COST_PAIRS, batch=TRAIN_BATCH, n_heads=cfg.n_heads,
+                                      head_dim=cfg.hd, dtype=cfg.dtype, n_iters=10)
+    for key in COST_PAIRS:
+        log(f"[pipeline] cost table (B {TRAIN_BATCH}, H {cfg.n_heads}, hd {cfg.hd}, bf16) "
+            f"l {key[0]} ctx {key[1]}: fwd {table.t_fwd(*key) * 1e3:.4f} ms, bwd "
+            f"{table.t_bwd(*key) * 1e3:.4f} ms")
+    log(f"[pipeline] summary: H100 fit efficiency {fit[0]:.4f}, occupancy_floor {fit[1]}")
+    return {"terapipe": counts, "dp-plan": dp_counts}
+
+
+# --------------------------------------------------------------- 6. times
 def phase_times(errs: dict, launches: dict) -> list:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -787,6 +1006,23 @@ def phase_times(errs: dict, launches: dict) -> list:
     return rows
 
 
+# ------------------------------------------------------------ 7. profiles
+def phase_profiles() -> None:
+    """One gspmd step and one pipelined step (M = PIPE_SLICES) under
+    torch.profiler, last: after a profiled region the host's eager launches
+    run slower for the rest of the process, which a host-bound run (the
+    pipelined step, the stage sweep) shows in its times, so every timed
+    eager run comes before it."""
+    cfg = _gpt3_1b().replace(use_kernel=True)
+    torch.cuda.empty_cache()
+    _profile_step(cfg, lambda model: value_and_grad(model.loss), "gspmd")
+    torch.cuda.empty_cache()
+    tcfg = TeraPipeConfig(n_token_slices=PIPE_SLICES)
+    _profile_step(cfg, lambda model: make_terapipe_value_and_grad(
+        model, tcfg, TRAIN_SEQ, TRAIN_BATCH, PIPE_RANKS), f"terapipe M {PIPE_SLICES}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -796,11 +1032,13 @@ def main() -> int:
     phase_build()
     errs = phase_kernels()
     errs.update(phase_kernels_bwd())
-    serve_launches = phase_serve()
-    train_launches, _ = phase_train()
-    launches = {k: serve_launches.get(k, 0) + train_launches[k] for k in COUNTERS}
-    log(f"[launches] main paths: serve {serve_launches}, train {train_launches}")
+    paths = {"serve": phase_serve()}
+    paths["train"], _ = phase_train()
+    paths.update(phase_pipeline())
+    launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in COUNTERS}
+    log(f"[launches] main paths: {paths}")
     rows = phase_times(errs, launches)
+    phase_profiles()
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

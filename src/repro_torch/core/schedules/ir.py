@@ -1,18 +1,22 @@
 """Schedule IR: stage/chunk placement, tick geometry, the comm plan and
-its audit (reference: ``repro/core/schedules/ir.py:53-458``, copied: the
-port imports nothing of the JAX package).
+its audit (reference: ``repro/core/schedules/ir.py``, copied: the port
+imports nothing of the JAX package).
 
 Unit kinds (``KIND_FWD``, fused ``KIND_BWD``, the zero-bubble split pair
-``KIND_BWD_INPUT``/``KIND_BWD_WEIGHT``, ``KIND_IDLE``), :class:`CommPlan`
-and the base :class:`StageAssignment` with its ``validate()`` audit — what
-the serving engine's ``streaming`` schedule needs.  ``OneFOneB``, its
-subclasses and the schedule registry arrive with the planning slice.
+``KIND_BWD_INPUT``/``KIND_BWD_WEIGHT``, ``KIND_IDLE``), :class:`CommPlan`,
+the base :class:`StageAssignment` with its ``validate()`` audit, and the
+explicit-backward tables :class:`OneFOneB`, :class:`InterleavedOneFOneB`
+and :class:`ZeroBubbleH1` with their factories.  Every table is the
+reference's; only ``contiguous`` runs in the port's executor so far.
+:func:`interleave_stacked` / :func:`uninterleave_stacked` act on torch
+tensors (reshape + transpose).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 # ---- unit kinds (the tick table's third column) --------------------------
 KIND_IDLE = -1        # fill/drain cell; work_item is -1 too
@@ -413,3 +417,312 @@ class StageAssignment:
                     lv.add(i)
                     spread = max(spread, max(lv) - min(lv) + 1)
         return spread
+
+
+@dataclasses.dataclass(frozen=True)
+class OneFOneB(StageAssignment):
+    """Memory-bounded 1F1B schedule (Narayanan et al. 2021), token-level,
+    generalized to V ≥ 1 virtual stages (V ≥ 2 is the *interleaved* 1F1B of
+    Megatron-LM; construct it via :class:`InterleavedOneFOneB` / the
+    ``interleaved-1f1b`` registry entry).
+
+    Explicit fwd AND bwd units in one lockstep tick table.  Work item
+    ``i = d·M + m`` (microbatch d, token slice m).  Fwd units follow the
+    interleaved unit ordering (groups of K items, chunk-ascending within a
+    group — the fwd-only ``interleaved`` order, 2×-dilated to make room for
+    bwd ticks); bwd units mirror it with chunks DESCENDING within a group
+    and slices DESCENDING within a microbatch — TeraPipe's attention cache
+    makes slice m's kv entries inputs of every later slice m' > m, so their
+    cotangents only finish accumulating once all later slices' bwds have run.
+
+    Timing (K ranks, N items, M slices per microbatch, V chunks):
+
+    * fwd unit u on rank k at tick ``2u + k``;
+    * bwd unit j on rank k at tick ``2j + C - k``, with the phase
+      ``C = 2·max_j(u_f(j) - j) + 2K - 1`` the smallest odd offset putting
+      every bwd strictly after its own fwd on every rank (``u_f(j)`` is the
+      fwd unit computing what bwd unit j transposes).  V=1 reduces to the
+      classic ``C = 2M + 2K - 3``.
+
+    Activations flow down the ``(k -> k+1)`` ring, cotangents down the
+    reverse ``(k -> k-1)`` ring; fwd and bwd ticks interleave collision-free
+    because their per-rank parities differ (C is odd).  For V ≥ 2 the
+    wrap-around chunk handoffs (fwd ``K-1 -> 0``, bwd ``0 -> K-1``) are
+    produced 2K units before their consumers in the dilated numbering, so
+    they ride their ring one hop and then sit K ticks in a skew buffer
+    (``comm_plan().fwd_hold == rev_hold == K``).  Peak live residuals stay
+    flat in the microbatch count D (saturating near ``C/2 ≈ (V-1)·K+M+K``),
+    where the fwd-only schedules hold all D·M·V.
+    """
+    n_microbatches: int = 1
+
+    has_backward = True
+
+    def __post_init__(self):
+        super().__post_init__()
+        assert self.n_microbatches >= 1, self
+
+    def _slices_per_microbatch(self, n_items: int) -> int:
+        D = self.n_microbatches
+        assert n_items % D == 0, (
+            f"1F1B schedule: work-item count {n_items} not divisible by "
+            f"n_microbatches={D}")
+        return n_items // D
+
+    def n_units(self, n_items: int) -> int:
+        """Per-rank units: one fwd AND one bwd per (work item, chunk)."""
+        self._slices_per_microbatch(n_items)
+        return 2 * super().n_units(n_items)
+
+    def _bwd_unit(self, u, M: int):
+        """(work_item, chunk) of a rank's u-th BACKWARD unit: the
+        interleaved group order with chunks descending within a group and
+        slices descending within a microbatch."""
+        K, V = self.n_ranks, self.virtual_stages
+        KV = K * V
+        g, r = u // KV, u % KV
+        i_seq = g * K + r % K
+        item = (i_seq // M) * M + (M - 1 - i_seq % M)
+        return item, (V - 1) - r // K
+
+    def _bwd_phase(self, n_items: int) -> int:
+        """C in ``bwd tick = 2j + C - k`` (see class doc)."""
+        K, V = self.n_ranks, self.virtual_stages
+        M = self._slices_per_microbatch(n_items)
+        u = np.arange(StageAssignment.n_units(self, n_items))
+        bi, bv = self._bwd_unit(u, M)
+        u_f = (bi // K) * K * V + bv * K + bi % K   # fwd unit of (item, chunk)
+        return 2 * int(np.max(u_f - u)) + 2 * K - 1
+
+    def n_ticks(self, n_items: int) -> int:
+        return (2 * StageAssignment.n_units(self, n_items)
+                + self._bwd_phase(n_items) - 1)
+
+    def unit_index(self, u):
+        raise NotImplementedError(
+            "1F1B unit timing is rank-dependent (fwd/bwd interleave by rank "
+            "parity); the executor consumes tick_table() as a gather table "
+            "instead of closed-form unit arithmetic")
+
+    def tick_table(self, n_items: int) -> np.ndarray:
+        K = self.n_ranks
+        M = self._slices_per_microbatch(n_items)
+        NV = StageAssignment.n_units(self, n_items)
+        C = self._bwd_phase(n_items)
+        tab = np.full((2 * NV + C - 1, K, 3), -1, np.int64)  # = n_ticks(N)
+        u = np.arange(NV)
+        fi, fv, _ = StageAssignment.unit_index(self, u)
+        bi, bv = self._bwd_unit(u, M)
+        for k in range(K):
+            t_f = 2 * u + k
+            tab[t_f, k, 0], tab[t_f, k, 1] = fi, fv
+            tab[t_f, k, 2] = KIND_FWD
+            t_b = 2 * u + C - k
+            assert not np.intersect1d(t_f, t_b).size      # parity-disjoint
+            tab[t_b, k, 0], tab[t_b, k, 1] = bi, bv
+            tab[t_b, k, 2] = KIND_BWD
+        return tab
+
+    def comm_plan(self) -> CommPlan:
+        hold = self.n_ranks if self.virtual_stages > 1 else 0
+        return CommPlan(fwd_ring=True, rev_ring=True,
+                        fwd_hold=hold, rev_hold=hold)
+
+    def _audit_backward_order(self, when_b):
+        """Within each microbatch, at every stage, bwd(-input) ticks must
+        DESCEND in slice index (the cache-cotangent accumulation order)."""
+        items = sorted({i for i, _ in when_b})
+        M = self._slices_per_microbatch(len(items))
+        for s in {s for _, s in when_b}:
+            for d in range(len(items) // M):
+                ticks = [when_b[(d * M + m, s)][0] for m in range(M)]
+                if ticks != sorted(ticks, reverse=True):
+                    raise ScheduleValidationError(
+                        f"stage {s} microbatch {d}: bwd ticks {ticks} not "
+                        f"slice-descending; cache cotangents incomplete")
+
+
+@dataclasses.dataclass(frozen=True)
+class InterleavedOneFOneB(OneFOneB):
+    """Skew-buffered interleaved 1F1B (V ≥ 2): the 1F1B unit ordering over V
+    round-robin layer chunks per rank.  Pure IR — the unified executor runs
+    it with no schedule-specific code, holding the wrap-around chunk
+    handoffs K ticks in the skew buffers its :meth:`comm_plan` declares.
+    Combines interleaving's ~V× smaller fill/drain bubble with 1F1B's
+    flat-in-D live-activation bound."""
+
+    def __post_init__(self):
+        super().__post_init__()
+        assert self.virtual_stages >= 2, (
+            "interleaved 1F1B needs V >= 2 virtual stages; use OneFOneB "
+            "(schedule='1f1b') for the V=1 table")
+
+
+@dataclasses.dataclass(frozen=True)
+class ZeroBubbleH1(OneFOneB):
+    """ZB-H1 zero-bubble schedule (Qi et al. 2023), token-level, V=1: the
+    1F1B fwd/bwd orderings with each fused bwd split into a B
+    (``KIND_BWD_INPUT``) unit and a W (``KIND_BWD_WEIGHT``) unit, so the
+    cotangent ring advances at B-cost (≈ fwd-cost) and the deferred W units
+    fill what 1F1B spends as drain bubble.
+
+    Timing (K ranks, N items, M slices per microbatch).  Two rigid combs —
+    fwd unit u runs on rank k at ``t_f[u] + k`` (fwd-ring delay exactly 1)
+    and B unit m (bwd order) at ``t_b[m] + 2(K-1-k)`` (reverse-ring delay
+    exactly 2 on every edge), with W one tick after its B on the same rank
+    — in three phases:
+
+    * **warmup** — the first ``w = M-1`` fwds run back-to-back
+      (``t_f[u] = u``), filling the pipe at 1F1B density;
+    * **steady** — fwds stretch to a 3-tick cadence (``t_f[u] = 3u - 2w``)
+      and B units march at ``t_b[m] = tS + 3m``, so every rank cycles
+      F, B, W with one unit per tick and zero idle on the critical rank.
+      Per-rank residues mod 3 are ``w+k`` (fwd), ``w+k+1`` (B), ``w+k+2``
+      (W) — pairwise disjoint for EVERY rank simultaneously, which forces
+      the B slope to ``-2k``: a 1F1B-style ``-k`` slope shifts fwd and B
+      residues in opposite directions and provably collides for K ≥ 3.
+      ``tS = max(w+K-1, K+3M-3-2w)`` (warmup clearance / per-microbatch
+      causality), rounded up to the collision-free residue class;
+    * **drain** — from the first bwd position ``mD`` whose B clears the
+      last fwd on rank K-1, B/W tighten to a dense 2-tick cadence
+      (``t_b[m] = t_b[mD] + 2(m-mD)``): the W units fill what 1F1B spends
+      as drain bubble, and because the ``2(K-1-k)`` comb shift is even,
+      every drain tick is all-B or all-W across ranks.
+
+    The ``-2k`` slope means every cotangent rides the reverse ring one hop
+    and waits one tick: ``comm_plan().rev_lag == 1`` (W sends nothing —
+    cotangent-ring deps attach to B units only).  Residual slots are
+    released by W (B still reads them) one tick after B; B→W lifetime is
+    O(K + M), so peak live residuals stay flat in the microbatch count D.
+
+    Why it beats 1F1B: with the fused-kernel cost structure (fwd = P + A
+    param-matmul + attention work, B = P + 1.5A, W = P + 2A, fused
+    bwd = 2P + 3.5A), 1F1B's steady-state tick costs max(fwd, bwd) =
+    2P + 3.5A, while ZB-H1's costs max(fwd, B, W) = P + 2A — and the
+    critical rank runs gapless from its first fwd to its last W
+    (span = K-1 + 3N ticks, the V=1 split-schedule optimum up to the
+    reverse-comb tail).
+    """
+    splits_backward = True
+
+    def __post_init__(self):
+        super().__post_init__()
+        assert self.virtual_stages == 1, (
+            "zb-h1 is defined at V=1 (its 3-cadence tick numbering has no "
+            "spare residue for wrap-around skew holds)")
+
+    def n_units(self, n_items: int) -> int:
+        """Per-rank units: one fwd, one B AND one W per (work item, chunk)."""
+        self._slices_per_microbatch(n_items)
+        return 3 * StageAssignment.n_units(self, n_items)
+
+    def _timing(self, n_items: int):
+        """Baseline tick of each fwd unit (rank 0: ``t_f[u] + k`` on rank
+        k) and each B unit in bwd order (rank K-1: ``t_b[m] + 2(K-1-k)``
+        on rank k); W is always ``+1`` after B on the same rank."""
+        K = self.n_ranks
+        M = self._slices_per_microbatch(n_items)
+        N = StageAssignment.n_units(self, n_items)
+        w = M - 1
+        u = np.arange(N)
+        t_f = np.where(u < w, u, 3 * u - 2 * w)
+        # first B: past the dense warmup on every rank AND >= K ticks after
+        # the last fwd of its microbatch (bwd starts at slice M-1), in the
+        # residue class keeping F/B/W disjoint on every rank at once
+        t_s = max(w + K - 1, K + 3 * M - 3 - 2 * w)
+        while (t_s + 2 * K - 2 - (w + 1)) % 3:
+            t_s += 1
+        # drain switch: first bwd position whose dense 2-cadence B/W run
+        # starts after the last fwd tick of rank K-1 (t_f[-1] + K - 1)
+        last_f = int(t_f[-1])
+        m_d = min(N, max(0, -((t_s - (last_f + K)) // 3)))
+        m = np.arange(N)
+        t_b = t_s + 3 * np.minimum(m, m_d) + 2 * np.maximum(m - m_d, 0)
+        return t_f, t_b
+
+    def n_ticks(self, n_items: int) -> int:
+        _, t_b = self._timing(n_items)
+        # rank 0's W of the last bwd unit, +1 for the tick itself
+        return int(t_b[-1]) + 2 * (self.n_ranks - 1) + 2
+
+    def tick_table(self, n_items: int) -> np.ndarray:
+        K = self.n_ranks
+        M = self._slices_per_microbatch(n_items)
+        N = StageAssignment.n_units(self, n_items)
+        t_f, t_b = self._timing(n_items)
+        u = np.arange(N)
+        fi, fv, _ = StageAssignment.unit_index(self, u)
+        bi, bv = self._bwd_unit(u, M)
+        # causality on the tightest rank (K-1): B strictly after its fwd
+        assert np.all(t_b >= t_f[bi] + K), (t_f, t_b, bi)
+        tab = np.full((self.n_ticks(n_items), K, 3), -1, np.int64)
+        for k in range(K):
+            tf = t_f + k
+            tb = t_b + 2 * (K - 1 - k)
+            tw = tb + 1
+            # warmup clearance + steady residues + drain switch keep the
+            # three streams collision-free on every rank
+            assert not np.intersect1d(tf, tb).size
+            assert not np.intersect1d(tf, tw).size
+            tab[tf, k, 0], tab[tf, k, 1] = fi, fv
+            tab[tf, k, 2] = KIND_FWD
+            tab[tb, k, 0], tab[tb, k, 1] = bi, bv
+            tab[tb, k, 2] = KIND_BWD_INPUT
+            tab[tw, k, 0], tab[tw, k, 1] = bi, bv
+            tab[tw, k, 2] = KIND_BWD_WEIGHT
+        return tab
+
+    def comm_plan(self) -> CommPlan:
+        return CommPlan(fwd_ring=True, rev_ring=True,
+                        fwd_hold=0, rev_hold=0, rev_lag=1)
+
+
+def contiguous(n_ranks: int, n_layers: int) -> StageAssignment:
+    """The paper's TeraPipe schedule: one contiguous chunk per rank."""
+    return StageAssignment(n_ranks, 1, n_layers)
+
+
+def interleaved(n_ranks: int, virtual_stages: int,
+                n_layers: int) -> StageAssignment:
+    """Megatron-style interleaved virtual pipeline: V round-robin chunks per
+    rank, ring traversed V times per work item."""
+    assert virtual_stages >= 2, virtual_stages
+    return StageAssignment(n_ranks, virtual_stages, n_layers)
+
+
+def one_f_one_b(n_ranks: int, n_layers: int,
+                n_microbatches: int = 1) -> OneFOneB:
+    """Memory-bounded 1F1B schedule (explicit bwd units; V=1)."""
+    return OneFOneB(n_ranks, 1, n_layers, n_microbatches)
+
+
+def interleaved_one_f_one_b(n_ranks: int, virtual_stages: int, n_layers: int,
+                            n_microbatches: int = 1) -> InterleavedOneFOneB:
+    """Skew-buffered interleaved 1F1B (explicit bwd units; V>=2)."""
+    return InterleavedOneFOneB(n_ranks, virtual_stages, n_layers,
+                               n_microbatches)
+
+
+def zb_h1(n_ranks: int, n_layers: int,
+          n_microbatches: int = 1) -> ZeroBubbleH1:
+    """ZB-H1 zero-bubble schedule (split B/W backward units; V=1)."""
+    return ZeroBubbleH1(n_ranks, 1, n_layers, n_microbatches)
+
+
+def interleave_stacked(a: torch.Tensor, assign: StageAssignment) -> torch.Tensor:
+    """Reorder a padded stage-major stacked tensor (leading axis ``n_padded``)
+    into rank-major chunk order; equals ``a[assign.param_permutation()]``,
+    as a reshape + transpose."""
+    K, V, b = assign.n_ranks, assign.virtual_stages, assign.blocks_per_chunk
+    s = tuple(a.shape)
+    assert s[0] == assign.n_padded, (s, assign)
+    return a.reshape((V, K, b) + s[1:]).transpose(0, 1).reshape(s)
+
+
+def uninterleave_stacked(a: torch.Tensor, assign: StageAssignment) -> torch.Tensor:
+    """Inverse of :func:`interleave_stacked`: rank-major chunk order back to
+    the stage-major (layer-order) stack."""
+    K, V, b = assign.n_ranks, assign.virtual_stages, assign.blocks_per_chunk
+    s = tuple(a.shape)
+    assert s[0] == assign.n_padded, (s, assign)
+    return a.reshape((K, V, b) + s[1:]).transpose(0, 1).reshape(s)

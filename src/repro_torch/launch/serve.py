@@ -9,7 +9,12 @@ CUDA kernels (as ``repro.launch.train --use-kernel`` does for training).
 
 Usage:
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke \\
-      --requests 8 --gen 16 [--slo-tmax 600] [--sequential] [--use-kernel]
+      --requests 8 --gen 16 [--slo-tmax 600] [--sequential] [--use-kernel] \\
+      [--simulate]
+
+``--simulate`` prices the served trace with ``core/simulator.py``'s
+``simulate_stream`` at ``--pipe`` stages (total, median TTFT and tokens per
+unit, in the chunk-cost units of ``--slo-tmax``).
 """
 import argparse
 import time
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.simulator import simulate_stream
 from repro_torch.models import build_model
 from repro_torch.serve import DecodeEngine, EngineConfig
 
@@ -44,14 +50,12 @@ def main(argv=None):
     ap.add_argument("--sequential", action="store_true",
                     help="baseline: cap concurrency at 1 request")
     ap.add_argument("--simulate", action="store_true",
-                    help="price the trace with simulate_stream (not yet ported)")
+                    help="price the trace with the simulator's simulate_stream")
     ap.add_argument("--use-kernel", action="store_true",
                     help="attention through the hand-written CUDA kernels")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.simulate:
-        raise NotImplementedError("--simulate waits for the simulator port")
 
     cfg = get_config(args.arch, smoke=args.smoke).replace(use_kernel=args.use_kernel)
     model = build_model(cfg, device=args.device)
@@ -85,11 +89,21 @@ def main(argv=None):
         print(f"[serve] rid={rid} prompt={len(r.prompt)} "
               f"first_token_round={r.first_token_round} "
               f"finish_round={r.finish_round} sample={r.generated[:6]}")
-    engine.schedule().validate(len(engine.units))
+    sched = engine.schedule()
+    sched.validate(len(engine.units))
     print(f"[serve] {len(rids)} requests, {total_tokens} tokens in "
           f"{engine.rounds} rounds ({dt:.2f}s wall on {model.device}, "
           f"{total_tokens / dt:.1f} tok/s); trace of {len(engine.units)} "
           f"units validates")
+
+    if args.simulate:
+        # the trace priced in the chunk-cost units of --slo-tmax, not seconds
+        rep = simulate_stream(
+            sched, lambda u: 1.0 + 0.001 * u.tokens * (1 + max(u.ctx)))
+        ttfts = sorted(rep.ttft.values())
+        print(f"[serve] simulated @K={args.pipe}: total={rep.total:.1f} "
+              f"ttft_p50={ttfts[len(ttfts) // 2]:.1f} "
+              f"tok/s={rep.tokens_per_s:.2f}")
 
 
 if __name__ == "__main__":

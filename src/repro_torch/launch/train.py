@@ -1,20 +1,29 @@
-"""Training launcher (reference: ``repro/launch/train.py``), single-device path.
+"""Training launcher (reference: ``repro/launch/train.py``).
 
     python -m repro_torch.launch.train --arch gpt3-1b --use-kernel \\
         --steps 5 --batch 4 --seq 2048
+    python -m repro_torch.launch.train --arch gpt3-1b --use-kernel \\
+        --mode terapipe --token-slices 8 --steps 5 --batch 4 --seq 2048
     python -m repro_torch.launch.train --arch gpt3-1b --smoke --device cpu \\
-        --steps 3 --batch 2 --seq 32
+        --mode terapipe --dp-plan --steps 3 --batch 2 --seq 512
 
-Each step is the reference's ``gspmd`` step on one device: ``model.loss``
-on a synthetic batch, ``loss.backward()``, AdamW with a cosine schedule,
-then ``apply_updates``, all on ``--device`` (``cuda`` unless the caller asks
-for ``cpu``; without a GPU the default raises).  ``--use-kernel`` routes
-attention through the hand-written CUDA kernels, forward and backward.
+Each step computes the loss and its gradients on a synthetic batch, then
+AdamW with a cosine schedule updates the parameters, all on ``--device``
+(``cuda`` unless the caller asks for ``cpu``; without a GPU the default
+raises).  ``--use-kernel`` routes attention through the hand-written CUDA
+kernels, forward and backward.
 
-The TeraPipe/GPipe executors, the DP slice planner, the other schedules
-and the checkpoint/supervisor loop are not ported yet: their flags raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them,
-where the reference would quietly run ``model.loss`` on one device.
+Modes:
+* ``gspmd``: ``model.loss`` on one device, the reference's single-device
+  step;
+* ``terapipe``: the token-slice pipeline (``core/pipeline.py``) on
+  ``PIPE_RANKS`` virtual ranks, M = ``--token-slices`` uniform slices or the
+  slices that Algorithm 1 plans (``--dp-plan``), D = ``--microbatches``;
+* ``gpipe``: the same executor with D microbatches and M = 1.
+The pipelined modes never fall back to the gspmd step.  The schedules
+other than ``contiguous``, ``--virtual-stages > 1`` and the
+checkpoint/supervisor loop are not ported yet: their flags raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
 """
 from __future__ import annotations
 
@@ -25,17 +34,26 @@ from typing import Optional
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.cost_model import H100, TPU_V5E, AnalyticCostModel, HardwareSpec
+from repro_torch.core.dp import DPResult, ensure_executable, optimal_slicing, plan_schedule_info
+from repro_torch.core.pipeline import (TeraPipeConfig, make_terapipe_value_and_grad,
+                                       value_and_grad)
+from repro_torch.core.schedule import SlicingScheme
+from repro_torch.core.schedules import (KIND_BWD, KIND_BWD_INPUT, KIND_BWD_WEIGHT, REGISTRY,
+                                        check_virtual_stages, schedule_help, schedule_names)
+from repro_torch.core.simulator import simulate
 from repro_torch.data.pipeline import DataPipeline, SyntheticSource
 from repro_torch.models import build_model
 from repro_torch.optim.adamw import adamw, apply_updates, cosine_schedule
 from repro_torch.tree import tree_leaves, tree_map
 
+#: pipeline ranks: the reference's ``pipe = min(4, n_devices)`` on any host
+#: with four devices or more; on one card the ranks are virtual
+PIPE_RANKS = 4
+
 # flag -> (value that means "not asked for", ROADMAP Queue 1 item that ports it)
 _UNPORTED = {
-    "dp_plan": (False, "item 3 (planning layer)"),
-    "schedule": (None, "items 3 and 6 (schedule IR, the other schedules)"),
     "virtual_stages": (1, "item 6 (interleaved schedules)"),
-    "unroll": (False, "item 4 (pipeline executor)"),
     "checkpoint_dir": (None, "item 5 (checkpoint/manager.py and the supervisor)"),
     "resume": (False, "item 5 (checkpoint/manager.py and the supervisor)"),
     "simulate_failure_at": (-1, "item 5 (checkpoint/manager.py and the supervisor)"),
@@ -43,31 +61,101 @@ _UNPORTED = {
 
 
 def _check_ported(args) -> None:
-    if args.mode != "gspmd":
+    if args.schedule != "contiguous":
         raise NotImplementedError(
-            f"--mode {args.mode}: not yet ported (ROADMAP Queue 1 item 4, the "
-            f"pipeline executor); the port runs the single-device gspmd step")
+            f"--schedule {args.schedule}: not yet ported to the executor (ROADMAP Queue 1 "
+            f"item 6, the other schedules); the port runs the contiguous schedule")
     for name, (default, item) in _UNPORTED.items():
         if getattr(args, name) != default:
             flag = "--" + name.replace("_", "-")
             raise NotImplementedError(f"{flag}: not yet ported (ROADMAP Queue 1 {item})")
 
 
-def train_step(model, opt, state: dict, batch) -> torch.Tensor:
-    """One step: ``model.loss`` on ``batch``, its backward, and the AdamW
-    update of ``state["params"]`` and ``state["opt_state"]``, rebound in
-    the dict; returns the loss, detached."""
-    loss = model.loss(state["params"], batch)
-    loss.backward()
+def plan_slices(cfg, seq: int, n_ranks: int, hw: HardwareSpec, *, microbatches: int = 1,
+                batch: int = 1):
+    """Algorithm 1 end to end, the reference's ``--dp-plan`` block
+    (``repro/launch/train.py:57-124``) for the contiguous schedule: plan the
+    slicing at granularity ``seq // 16`` on the analytic model of ``hw``
+    with ``batch`` sequences per slice, make it executable, then rank every
+    registered schedule on it with the simulator.  Prints the ``[dp-plan]``
+    lines; returns ``(slice_lens, DPResult)``."""
+    layers = max(1, cfg.n_layers // n_ranks)
+    cm = AnalyticCostModel(cfg, hw, layers_per_stage=layers, batch=batch)
+    g = max(1, seq // 16)
+    plan: DPResult = optimal_slicing(cm, seq, n_ranks, granularity=g)
+    slice_lens = tuple(ensure_executable(plan.slices, schedule="contiguous", n_ranks=n_ranks,
+                                         n_microbatches=microbatches, granularity=g))
+    info = plan_schedule_info(slice_lens, schedule="contiguous", n_ranks=n_ranks,
+                              n_microbatches=microbatches)
+    print(f"[dp-plan] slices {list(slice_lens)} "
+          f"(predicted {plan.latency*1e3:.1f} ms/iter; "
+          + " ".join(f"{k}={v}" for k, v in info.items()) + ")")
+    # rank every registered schedule on this plan: its executability
+    # post-pass, then its fwd(+typed bwd) tick table priced by the model
+    cm_u = AnalyticCostModel(cfg, hw, layers_per_stage=layers, batch=batch,
+                             include_backward=False)
+    D = microbatches
+    best = None
+    for name, spec in REGISTRY.items():
+        V = spec.min_virtual
+        sl = ensure_executable(plan.slices, schedule=name, n_ranks=n_ranks,
+                               n_microbatches=D, granularity=g)
+        sch = SlicingScheme.from_dp(seq, D, [(1, list(sl))] * D)
+        if spec.has_backward:
+            lat = simulate(
+                sch, n_ranks, lambda b, l, c: cm_u.unit_cost(l, c),
+                discipline=name, virtual_stages=V, include_backward=True,
+                t_bwd_of=lambda b, l, c: cm_u.unit_cost(l, c, kind=KIND_BWD),
+                t_bwd_input_of=lambda b, l, c: cm_u.unit_cost(l, c, kind=KIND_BWD_INPUT),
+                t_bwd_weight_of=lambda b, l, c: cm_u.unit_cost(l, c, kind=KIND_BWD_WEIGHT))
+        else:
+            disc = "lockstep" if name == "contiguous" else name
+            lat = simulate(sch, n_ranks, lambda b, l, c: cm(l, c),
+                           discipline=disc, virtual_stages=V)
+        sinfo = plan_schedule_info(sl, schedule=name, n_ranks=n_ranks,
+                                   virtual_stages=V, n_microbatches=D)
+        print(f"[dp-plan]   {name:<17} V={V} {lat*1e3:10.3f} ms/iter  "
+              + " ".join(f"{k}={v}" for k, v in sinfo.items()))
+        if best is None or lat < best[1]:
+            best = (name, lat, V)
+    print(f"[dp-plan] winner: {best[0]} (V={best[2]}, "
+          f"{best[1]*1e3:.3f} ms/iter simulated fwd+bwd)")
+    return slice_lens, plan
+
+
+def build_value_and_grad(model, args):
+    """``(params, batch) -> (loss, grads)`` for the selected mode."""
+    if args.mode == "gspmd":
+        return value_and_grad(model.loss)
+    slice_lens = None
+    if args.dp_plan:
+        # on the card: the card's spec, fitted at the executor's batch per
+        # slice, priced at that batch; on the CPU: the reference's own
+        # target at its batch of 1, so a CPU plan equals the reference's
+        on_card = model.device.type == "cuda"
+        slice_lens, _ = plan_slices(
+            model.cfg, args.seq, PIPE_RANKS, H100 if on_card else TPU_V5E,
+            microbatches=args.microbatches,
+            batch=args.batch // args.microbatches if on_card else 1)
+    tcfg = TeraPipeConfig(
+        n_token_slices=args.token_slices if args.mode == "terapipe" else 1,
+        slice_lens=slice_lens, n_microbatches=args.microbatches,
+        schedule=args.schedule, virtual_stages=args.virtual_stages)
+    return make_terapipe_value_and_grad(model, tcfg, args.seq, args.batch, PIPE_RANKS)
+
+
+def train_step(vg_fn, opt, state: dict, batch) -> torch.Tensor:
+    """One step: loss and gradients of ``state["params"]`` on ``batch`` by
+    ``vg_fn``, then the AdamW update of ``state["params"]`` and
+    ``state["opt_state"]``, rebound in the dict; returns the loss, detached."""
+    loss, grads = vg_fn(state["params"], batch)
     # rebinding as soon as each value is replaced keeps one copy of the
     # moments and of the gradients alive at a time
-    updates, state["opt_state"] = opt.update(tree_map(lambda p: p.grad, state["params"]),
-                                             state["opt_state"], state["params"])
-    for p in tree_leaves(state["params"]):
-        p.grad = None
+    updates, state["opt_state"] = opt.update(grads, state["opt_state"], state["params"])
+    del grads
     state["params"] = tree_map(lambda p: p.requires_grad_(True),
                                apply_updates(state["params"], updates))
-    return loss.detach()
+    return loss
 
 
 def main(argv=None, history: Optional[list] = None) -> float:
@@ -83,12 +171,19 @@ def main(argv=None, history: Optional[list] = None) -> float:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--mode", default="gspmd", choices=["gspmd", "terapipe", "gpipe"])
-    ap.add_argument("--dp-plan", action="store_true", help="not yet ported")
-    ap.add_argument("--schedule", default=None, help="not yet ported")
+    ap.add_argument("--token-slices", type=int, default=4)
+    ap.add_argument("--dp-plan", action="store_true",
+                    help="plan slice lengths with the paper's DP (Alg. 1); --mode terapipe")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--schedule", default="contiguous", choices=list(schedule_names()),
+                    help="pipeline schedule (core/schedules registry; only contiguous "
+                    "is ported to the executor): " + schedule_help())
     ap.add_argument("--virtual-stages", type=int, default=1, help="not yet ported")
     ap.add_argument("--use-kernel", action="store_true",
                     help="attention through the hand-written CUDA kernels")
-    ap.add_argument("--unroll", action="store_true", help="not yet ported")
+    ap.add_argument("--unroll", action="store_true",
+                    help="accepted for the reference's CLI: the port's tick loop is eager "
+                    "Python either way (rolled vs unrolled is a JAX tracing choice)")
     ap.add_argument("--checkpoint-dir", default=None, help="not yet ported")
     ap.add_argument("--resume", action="store_true", help="not yet ported")
     ap.add_argument("--simulate-failure-at", type=int, default=-1, help="not yet ported")
@@ -96,6 +191,14 @@ def main(argv=None, history: Optional[list] = None) -> float:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    sched_eff = ("interleaved" if args.schedule == "contiguous" and args.virtual_stages > 1
+                 else args.schedule)
+    try:
+        check_virtual_stages(sched_eff, args.virtual_stages)
+    except ValueError as e:
+        ap.error(str(e))
+    if args.dp_plan and args.mode != "terapipe":
+        ap.error("--dp-plan plans token slices: it needs --mode terapipe")
     _check_ported(args)
 
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -103,6 +206,7 @@ def main(argv=None, history: Optional[list] = None) -> float:
         cfg = cfg.replace(use_kernel=True)
     model = build_model(cfg, device=args.device)
     dev = model.device
+    vg_fn = build_value_and_grad(model, args)
     opt = adamw(cosine_schedule(args.lr, args.warmup, args.steps))
     state = {"params": tree_map(lambda p: p.requires_grad_(True), model.init(args.seed))}
     state["opt_state"] = opt.init(state["params"])
@@ -112,7 +216,7 @@ def main(argv=None, history: Optional[list] = None) -> float:
     t_last, tok_count, steps_since = time.time(), 0, 0
     while step < args.steps:
         batch = {k: torch.from_numpy(a).to(dev) for k, a in data.batch_at(step).items()}
-        loss = train_step(model, opt, state, batch)
+        loss = train_step(vg_fn, opt, state, batch)
         tok_count += batch["tokens"].numel()
         steps_since += 1
         step += 1
@@ -128,7 +232,7 @@ def main(argv=None, history: Optional[list] = None) -> float:
             t_last, tok_count, steps_since = time.time(), 0, 0
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))
     print(f"done: {args.steps} steps, final loss {float(loss):.4f} "
-          f"({cfg.name}, {n_params:,} parameters, {dev})")
+          f"({cfg.name}, {n_params:,} parameters, {dev}, mode {args.mode})")
     return float(loss)
 
 

@@ -3,8 +3,8 @@
 Ported modes: ``full`` (causal self-attention over the whole sequence: the
 training forward), ``sliced`` (a token slice at a static context offset
 over [prefix KV cache ++ this slice]: prefill chunks), ``sliced_dyn`` (a
-slice at an offset that is data, attending over the whole cache with an
-absolute-position mask: the pipeline executors' op) and ``decode`` (one
+slice at an offset that is data, attending over the cache rows up to the
+slice's end with an absolute-position mask: the pipeline executor's op) and ``decode`` (one
 new token per row against a fixed-capacity cache, at a scalar or a per-row
 position).  Windowed and bidirectional attention, the ring cache and
 cross-attention arrive with the family slices.
@@ -152,10 +152,12 @@ def attn_sliced_dyn(p, cfg: ModelConfig, x_slice: torch.Tensor, kv_cache, ctx,
     pipeline: at one tick each stage works at its own ctx).
 
     ``ctx`` is a python int or a 0-d tensor (read once on the host).  The
-    slice's K/V are written at ``ctx``; the slice attends over the FULL cache
-    with an absolute-position causal mask, so entries past ctx + l (stale or
-    unwritten) are masked.  Under ``cfg.use_kernel`` the kernels' causal
-    frontier skips those tiles; the plain path pays for the whole cache.
+    slice's K/V are written at ``ctx``; the slice attends over the cache
+    rows ``[0, ctx + l)`` with an absolute-position causal mask.  The
+    reference attends over the whole cache and masks the rows past ctx + l
+    (stale or unwritten); with ``ctx`` on the host the port hands the
+    attention only the rows it reads, which gives the same result, and no
+    dK/dV work or zero tiles for the unused tail.
     """
     if window:
         raise NotImplementedError("windowed attention: not yet ported (hybrid family)")
@@ -166,11 +168,13 @@ def attn_sliced_dyn(p, cfg: ModelConfig, x_slice: torch.Tensor, kv_cache, ctx,
     ck, cv = kv_cache
     ck = _write_rows(ck, k, ctx)
     cv = _write_rows(cv, v, ctx)
+    k_all = ck[:, :ctx + l].to(q.dtype)
+    v_all = cv[:, :ctx + l].to(q.dtype)
     if cfg.use_kernel:
-        out = kops.terapipe_attention(q, ck.to(q.dtype), cv.to(q.dtype), ctx_len=ctx)
+        out = kops.terapipe_attention(q, k_all, v_all, ctx_len=ctx)
     else:
-        mask = causal_mask(l, ck.shape[1], q_offset=ctx, device=q.device)
-        out = attention_scores_gqa(q, ck.to(q.dtype), cv.to(q.dtype), mask=mask[None])
+        mask = causal_mask(l, ctx + l, q_offset=ctx, device=q.device)
+        out = attention_scores_gqa(q, k_all, v_all, mask=mask[None])
     return _out_proj(p, cfg, out, b, l, x_slice.dtype), (ck, cv)
 
 

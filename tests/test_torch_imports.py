@@ -2,8 +2,9 @@
 
 * no module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports jax,
   jaxlib or the JAX package, and none calls a finished attention op;
-* every entry point raises when no GPU is present and the caller did not
-  ask for ``device="cpu"``; the kernel wrappers refuse CPU tensors;
+* every entry point (serving, the training modes, the kernel cost table)
+  raises when no GPU is present and the caller did not ask for
+  ``device="cpu"``; the kernel wrappers refuse CPU tensors;
 * CPU tensors take the plain path and leave both launch counters at 0.
 """
 import ast
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.cost_model import measure_kernel_cost_table
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.decode_attention import decode_attention_kernel
 from repro_torch.kernels.terapipe_attention import terapipe_attention_fwd
@@ -25,6 +27,10 @@ from repro_torch.launch import train as train_launch
 from repro_torch.models import build_model
 from repro_torch.serve import DecodeEngine, EngineConfig
 from repro_torch.timing import PEAK_BF16_FLOPS, PEAK_BYTES, bound_ms
+
+# the suite runs several workers on the same cores: one intra-op thread
+# each keeps torch's pool from oversubscribing them
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
@@ -87,6 +93,11 @@ def test_entry_points_raise_without_gpu():
         serve_launch.main(["--smoke"])
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         train_launch.main(["--arch", "gpt3-1b", "--smoke", "--steps", "1"])
+    for mode in ("terapipe", "gpipe"):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            train_launch.main(["--arch", "gpt3-1b", "--smoke", "--steps", "1", "--mode", mode])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        measure_kernel_cost_table([(8, 0)])
     with pytest.raises(RuntimeError, match="CUDA GPU"):
         _build.build_all()
     q, k, v = _cpu_tensors()
@@ -123,24 +134,26 @@ def test_cpu_tensors_take_the_plain_path_without_launches():
         eng.submit(rng.randint(0, cfg.vocab_size, size=n).tolist(), 3)
     eng.run()
     assert len(eng.finished) == 2
+    # and the pipelined training step, kernels routed
+    train_launch.main(["--arch", "gpt3-1b", "--smoke", "--device", "cpu", "--use-kernel",
+                       "--mode", "terapipe", "--steps", "1", "--batch", "2", "--seq", "16"])
     assert all(fn.launches == 0 for fn in counters)
 
 
 def test_forward_only_and_unported_surfaces_raise():
     """What is still to port raises NotImplementedError and names where it
-    is ported: the executor modes and the checkpoint loop of launch.train,
-    the non-dense families, serve --simulate."""
+    is ported: the other schedules and the checkpoint loop of launch.train,
+    the non-dense families."""
     smoke = ["--arch", "gpt3-1b", "--smoke", "--device", "cpu", "--steps", "1"]
-    for extra, what in ((["--mode", "terapipe"], "item 4"), (["--mode", "gpipe"], "item 4"),
-                        (["--dp-plan"], "item 3"), (["--schedule", "1f1b"], "item"),
+    for extra, what in ((["--mode", "terapipe", "--schedule", "1f1b"], "item 6"),
+                        (["--schedule", "zb-h1"], "item 6"),
+                        (["--mode", "terapipe", "--virtual-stages", "2"], "item 6"),
                         (["--checkpoint-dir", "ckpt"], "item 5"),
                         (["--simulate-failure-at", "0"], "item 5")):
         with pytest.raises(NotImplementedError, match=what):
             train_launch.main(smoke + extra)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         get_config("mamba2-2.7b", smoke=True)
-    with pytest.raises(NotImplementedError, match="--simulate"):
-        serve_launch.main(["--smoke", "--device", "cpu", "--simulate"])
     cfg = get_config("gpt3-1b", smoke=True)
     model = build_model(cfg.replace(remat=True, remat_policy="dots"), device="cpu")
     with pytest.raises(NotImplementedError, match="dots"):

@@ -35,6 +35,10 @@ from repro_torch.kernels.ref import terapipe_attention_ref
 from test_torch_kernels import DECODE, DTYPES, PREFILL
 from test_torch_kernels_bwd import CASES
 
+# the suite runs several workers on the same cores: one intra-op thread
+# each keeps torch's pool from oversubscribing them
+torch.set_num_threads(1)
+
 KEY_TILE = 64     # keys per K/V tile of fwd_kernel_bf16
 LOG2E = 1 / math.log(2)
 

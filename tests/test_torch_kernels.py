@@ -17,6 +17,10 @@ from repro.kernels.terapipe_attention import terapipe_attention_fwd as jax_fwd
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import terapipe_attention_ref
 
+# the suite runs several workers on the same cores: one intra-op thread
+# each keeps torch's pool from oversubscribing them
+torch.set_num_threads(1)
+
 DTYPES = [(np.float32, jnp.float32, torch.float32, 2e-5),
           (np.float32, jnp.bfloat16, torch.bfloat16, 2e-2)]
 

@@ -20,6 +20,10 @@ from repro.kernels.ref import terapipe_attention_ref as jax_attention_ref
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import terapipe_attention_bwd_ref, terapipe_attention_ref
 
+# the suite runs several workers on the same cores: one intra-op thread
+# each keeps torch's pool from oversubscribing them
+torch.set_num_threads(1)
+
 DTYPES = [(jnp.float32, torch.float32, 2e-4), (jnp.bfloat16, torch.bfloat16, 5e-2)]
 
 # (B, l, ctx, Hq, Hkv, hd): tests/test_kernels_bwd.py::test_fused_vjp_matches_reference

@@ -21,6 +21,10 @@ from repro_torch.models import build_model
 from repro_torch.models import common as tc
 from repro_torch.weights import params_from_jax
 
+# the suite runs several workers on the same cores: one intra-op thread
+# each keeps torch's pool from oversubscribing them
+torch.set_num_threads(1)
+
 TOL = 2e-4
 B, PROMPT, MAX_LEN = 2, 37, 64
 

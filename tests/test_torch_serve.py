@@ -15,6 +15,8 @@ import pytest
 import torch
 
 from repro.core import dp as jax_dp
+from repro.core import schedules as jax_schedules
+from repro.core import simulator as jax_simulator
 from repro.models import build_model as jax_build_model
 from repro.models.common import ModelConfig as JaxModelConfig
 from repro.serve import DecodeEngine as JaxEngine
@@ -22,9 +24,14 @@ from repro.serve import EngineConfig as JaxEngineConfig
 from repro.serve import kv_cache as jax_kv
 from repro_torch.core import dp
 from repro_torch.core.schedules import ScheduleValidationError, decode_round, prefill_unit, streaming
+from repro_torch.launch import serve as serve_launch
 from repro_torch.models import ModelConfig, build_model
 from repro_torch.serve import DecodeEngine, EngineConfig, kv_cache
 from repro_torch.weights import params_from_jax
+
+# the suite runs several workers on the same cores: one intra-op thread
+# each keeps torch's pool from oversubscribing them
+torch.set_num_threads(1)
 
 ARCH = dict(name="t", family="dense", n_layers=2, d_model=32, n_heads=4,
             n_kv_heads=2, d_ff=64, vocab_size=64, remat=False)
@@ -128,3 +135,27 @@ def test_stream_audit_rejects_decode_before_prefill():
     bad = (prefill_unit(0, 0, 4, final=False), decode_round([0], [4]))
     with pytest.raises(ScheduleValidationError, match="decodes before"):
         streaming(1, 2, bad).validate(2)
+
+
+def test_serve_launch_simulate_matches_jax_simulator(monkeypatch, capsys):
+    """launch.serve --simulate prices the served trace with the port's
+    simulate_stream; the printed totals equal the JAX simulator's on the
+    same units."""
+    engines = []
+
+    class Recording(DecodeEngine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            engines.append(self)
+
+    monkeypatch.setattr(serve_launch, "DecodeEngine", Recording)
+    serve_launch.main(["--smoke", "--device", "cpu", "--simulate", "--requests", "3", "--gen",
+                       "3", "--pipe", "2", "--slo-tmax", "120"])
+    line = [x for x in capsys.readouterr().out.splitlines() if "simulated @K=2" in x]
+    units = tuple(jax_schedules.StreamUnit(*dataclasses.astuple(u)) for u in engines[0].units)
+    rep = jax_simulator.simulate_stream(
+        jax_schedules.streaming(2, 1, units), lambda u: 1.0 + 0.001 * u.tokens * (1 + max(u.ctx)))
+    ttfts = sorted(rep.ttft.values())
+    assert line == [f"[serve] simulated @K=2: total={rep.total:.1f} "
+                    f"ttft_p50={ttfts[len(ttfts) // 2]:.1f} tok/s={rep.tokens_per_s:.2f}"]
+    assert any(u.kind == "prefill" and not u.final for u in units)

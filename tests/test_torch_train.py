@@ -33,6 +33,10 @@ from repro_torch.optim import adamw
 from repro_torch.tree import tree_items, tree_leaves, tree_map, tree_unflatten
 from repro_torch.weights import params_from_jax
 
+# the suite runs several workers on the same cores: one intra-op thread
+# each keeps torch's pool from oversubscribing them
+torch.set_num_threads(1)
+
 TOL = 2e-4
 ARCH = "gpt3-1b"
 B, S = 2, 32
