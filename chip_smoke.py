@@ -42,25 +42,35 @@ result line):
                and within 1 of ln(vocab); launches must equal the remat
                formula (2 forward, 1 dQ, 1 dK/dV per layer per step);
   5. pipeline — the token-slice pipeline (core/pipeline.py, K = 4 virtual
-               ranks, contiguous schedule) on gpt3-1b at full width, after
-               the gspmd run's state is freed: one stage's (6 blocks)
-               forward at batch 4, ctx 0, over l = 32..2048 (the paper's
-               Fig. 3), with the H100 spec's efficiency and occupancy floor
-               fitted to its CUDA-graph times; the pipelined loss and
-               gradients (kernels; M 8, and fixed non-uniform slices)
+               ranks) on gpt3-1b at full width, after the gspmd run's state
+               is freed: one stage's (6 blocks) forward at batch 4, ctx 0,
+               over l = 32..2048 (the paper's Fig. 3), with the H100 spec's
+               efficiency and occupancy floor fitted to its CUDA-graph
+               times; the pipelined loss and gradients through the kernels
                against the plain paths at batch 1 x seq 2048, within the
-               bounds of phase 4; 5 steps of launch.train.main --mode
-               terapipe --use-kernel --token-slices 8, then 5 with
-               --dp-plan, at batch 4 x seq 2048, each with the launch
-               counts D*M*n_layers*(1 + remat) forward, D*M*n_layers dQ and
-               dK/dV; the kernel cost table (measure_kernel_cost_table) at a
-               few (l, ctx);
+               bounds of phase 4, under contiguous (M 8, and fixed
+               non-uniform slices), 1f1b, zb-h1, interleaved (V 2) and
+               interleaved-1f1b (V 2), M 8; 3 steps of launch.train.main
+               --mode terapipe --use-kernel --token-slices 8 under each of
+               those five schedules, then 3 with --dp-plan, at batch 4 x seq
+               2048, each with its ms/step, peak allocated memory and exact
+               launch counts (_launches_per_step); 1F1B's memory flat in D:
+               one step at microbatch 1 x seq 2048, M 8, D 2 and D 4, whose
+               peak allocated memory above the pre-step baseline must agree
+               within 10% (the residual store's peak is
+               peak_live_items = min(D*M, K+M-1) = 11 at both), beside
+               contiguous at the same D; the kernel cost table
+               (measure_kernel_cost_table: the forward kernel, and dQ +
+               dK/dV on one saved forward) at a few (l, ctx), measured
+               twice: every bwd/fwd ratio in [2, 6], and the l 256, ctx 0
+               backward entry within 25% across the two;
   6. times   — each kernel at a main-path shape (CUDA events, median of 30
                after warm-up, L2 flushed before each launch) beside its
                bound, its plain version and one PyTorch library call; the
                forward also at the training shape (train_ms, train_bound_ms,
                train_library_ms);
-  7. profiles — one gspmd step and one pipelined step (M 8) under
+  7. profiles — one gspmd step and two pipelined steps (M 8, contiguous and
+               1f1b) under
                torch.profiler: the 15 device kernels that took the most
                time and the repo's own kernels wherever they rank, with
                their share of the step, the device's busy share, and the
@@ -93,8 +103,9 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.cost_model import (H100, AnalyticCostModel,  # noqa: E402
                                          fit_efficiency_and_floor,
                                          measure_kernel_cost_table)
-from repro_torch.core.pipeline import (TeraPipeConfig, make_terapipe_loss,  # noqa: E402
+from repro_torch.core.pipeline import (TeraPipeConfig,  # noqa: E402
                                        make_terapipe_value_and_grad, value_and_grad)
+from repro_torch.core.schedules import REGISTRY, get_schedule  # noqa: E402
 from repro_torch.data.pipeline import DataPipeline, SyntheticSource  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import CHUNK, decode_attention_kernel  # noqa: E402
@@ -595,40 +606,42 @@ def _check_train_against_plain(cfg, pipelined: Optional[Dict[str, TeraPipeConfig
                                ) -> int:
     """One loss and all its gradients at batch 1 x seq 2048 from one seeded
     init: through the kernels (the gspmd step, or the pipelined step of each
-    of ``pipelined``'s configs on PIPE_RANKS ranks), through the plain
-    attention path, and through the plain path in float32; each kernel run
-    is held to the bounds.  Returns the number of parameters."""
+    of ``pipelined``'s configs on PIPE_RANKS ranks, one after another),
+    through the plain attention path, and through the plain path in
+    float32; each kernel run is held to the bounds.  Returns the number of
+    parameters."""
     variants = {"plain": cfg.replace(use_kernel=False),
                 "plain f32": cfg.replace(use_kernel=False, dtype=torch.float32),
                 "kernel": cfg.replace(use_kernel=True)}
     models = {name: build_model(c) for name, c in variants.items()}
-    losses = {name: m.loss for name, m in models.items()}
-    if pipelined is not None:
-        del losses["kernel"]
-        for label, tcfg in pipelined.items():
-            losses[f"pipelined ({label}) kernels"] = make_terapipe_loss(
-                models["kernel"], tcfg, TRAIN_SEQ, 1, PIPE_RANKS)
+    if pipelined is None:
+        kernel_vgs = {"kernels": value_and_grad(models["kernel"].loss)}
     else:
-        losses["kernels"] = losses.pop("kernel")
+        kernel_vgs = {f"pipelined ({label}) kernels": make_terapipe_value_and_grad(
+            models["kernel"], tcfg, TRAIN_SEQ, 1, PIPE_RANKS) for label, tcfg in pipelined.items()}
     params = models["kernel"].init(seed=0)
     named = list(tree_items(params))
     for _, p in named:
         p.requires_grad_(True)
     toks = DataPipeline(SyntheticSource(cfg.vocab_size, 1), 1, TRAIN_SEQ).batch_at(0)
     batch = {k: torch.from_numpy(a).cuda() for k, a in toks.items()}
-    out = {}
-    for name, loss_fn in losses.items():
-        loss = loss_fn(params, batch)
-        out[name] = (loss.detach(), torch.autograd.grad(loss, [p for _, p in named]))
-    (lp, gp), (l32, g32) = out.pop("plain"), out.pop("plain f32")
+
+    def run(vg):
+        loss, grads = vg(params, batch)
+        return loss.detach(), list(tree_leaves(grads))
+
+    lp, gp = run(value_and_grad(models["plain"].loss))
+    l32, g32 = run(value_and_grad(models["plain f32"].loss))
     p32 = [_rel(a, b) for a, b in zip(gp, g32)]
     wp = max(p32)
-    for label, (lk, gk) in out.items():
+    for label, vg in kernel_vgs.items():
+        lk, gk = run(vg)
         if not (torch.isfinite(lk) and all(torch.isfinite(g).all() for g in gk)):
             raise AssertionError(f"train: non-finite loss or gradients, {label}")
         rel_loss = ((lk - lp).abs() / lp.abs()).item()
         vs_plain = [_rel(a, b) for a, b in zip(gk, gp)]
         k32 = [_rel(a, b) for a, b in zip(gk, g32)]
+        del gk
         wk = max(k32)
         log(f"[train] gpt3-1b FULL, batch 1 x seq {TRAIN_SEQ}: loss {label} {lk.item():.6f}, "
             f"plain {lp.item():.6f}, plain f32 {l32.item():.6f} (kernels vs plain relative "
@@ -643,11 +656,12 @@ def _check_train_against_plain(cfg, pipelined: Optional[Dict[str, TeraPipeConfig
     return sum(p.numel() for _, p in named)
 
 
-def _train_run(cfg, argv, label, per_step) -> tuple:
-    """``launch.train.main(argv)`` with every launch counter set to 0 just
-    before and read just after: TRAIN_STEPS finite losses within 1 of
-    ln(vocab), launches equal to ``per_step`` (kernel -> count) times the
-    steps.  Returns the counts and the run's metrics."""
+def _train_run(cfg, argv, label, per_step, steps: int = TRAIN_STEPS) -> tuple:
+    """``launch.train.main(argv + --steps steps)`` with every launch counter
+    set to 0 just before and read just after: ``steps`` finite losses
+    within 1 of ln(vocab), launches equal to ``per_step`` (kernel -> count)
+    times the steps.  Returns the counts and the run's metrics."""
+    argv = argv + ["--steps", str(steps)]
     log(f"[{label}] python -m repro_torch.launch.train {' '.join(argv)}")
     for fn in COUNTERS.values():
         fn.launches = 0
@@ -660,32 +674,44 @@ def _train_run(cfg, argv, label, per_step) -> tuple:
 
     losses = [r["loss"] for r in history]
     ln_v = math.log(cfg.vocab_size)
-    if len(losses) != TRAIN_STEPS or not all(abs(x - ln_v) <= 1.0 for x in losses):
-        raise AssertionError(f"{label}: losses {losses} not {TRAIN_STEPS} finite values "
+    if len(losses) != steps or not all(abs(x - ln_v) <= 1.0 for x in losses):
+        raise AssertionError(f"{label}: losses {losses} not {steps} finite values "
                              f"within 1 of ln V = {ln_v:.4f}")
     if final != losses[-1]:
         raise AssertionError(f"{label}: main returned {final}, last logged {losses[-1]}")
-    want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in COUNTERS}
+    want = {k: per_step.get(k, 0) * steps for k in COUNTERS}
     if counts != want:
         raise AssertionError(f"{label}: launches {counts} != {want}")
     step_ms = statistics.median(r["ms_per_step"] for r in history[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
     metrics = {"step_ms": step_ms, "tok_s": tokens / step_ms * 1e3, "peak_gib": peak_gb}
-    log(f"[{label}] gpt3-1b FULL, {TRAIN_STEPS} steps of batch {TRAIN_BATCH} x seq "
+    log(f"[{label}] gpt3-1b FULL, {steps} steps of batch {TRAIN_BATCH} x seq "
         f"{TRAIN_SEQ}: losses {losses}; step {step_ms:.1f} ms (median of steps "
-        f"2-{TRAIN_STEPS}), {metrics['tok_s']:.0f} tok/s, peak allocated {peak_gb:.2f} GiB; "
+        f"2-{steps}), {metrics['tok_s']:.0f} tok/s, peak allocated {peak_gb:.2f} GiB; "
         f"launches {counts}")
     return counts, metrics
 
 
-def _launches_per_step(cfg, work_items: int) -> dict:
+def _launches_per_step(cfg, work_items: int, schedule: str = "contiguous") -> dict:
     """Kernel launches of one training step that runs every layer on
-    ``work_items`` (slice, microbatch) pieces: remat runs each layer's
-    forward again in the backward (non-reentrant checkpoint), so 2 forward
-    launches per layer per piece; 1 dQ and 1 dK/dV."""
+    ``work_items`` (slice, microbatch) pieces under ``schedule``, per layer
+    per piece:
+    * forward-only schedules (contiguous, interleaved, and the gspmd step):
+      autograd over the step, where remat runs each layer's forward again
+      in the backward (non-reentrant checkpoint): 1 + remat forward, 1 dQ,
+      1 dK/dV;
+    * 1f1b and interleaved-1f1b: the forward unit, without autograd, then
+      the backward unit's recompute, which is the remat (no checkpoint
+      inside it): 2 forward, 1 dQ, 1 dK/dV;
+    * zb-h1: the same 2 forward (W takes B's graph, kept one tick), but B
+      (the inputs' gradient) and W (the parameters') each run the
+      attention backward: 2 dQ, 2 dK/dV."""
+    spec = REGISTRY[schedule]
     n = work_items * cfg.n_layers
-    return {"terapipe_attention_fwd": (2 if cfg.remat else 1) * n,
-            "terapipe_attention_dq": n, "terapipe_attention_dkv": n}
+    fwd = 2 if spec.has_backward or cfg.remat else 1
+    bwd = 2 if spec.splits_backward else 1
+    return {"terapipe_attention_fwd": fwd * n,
+            "terapipe_attention_dq": bwd * n, "terapipe_attention_dkv": bwd * n}
 
 
 def _gpt3_1b():
@@ -696,8 +722,8 @@ def _gpt3_1b():
     return cfg
 
 
-TRAIN_ARGV = ["--arch", "gpt3-1b", "--use-kernel", "--steps", str(TRAIN_STEPS), "--batch",
-              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1", "--seed", "0"]
+TRAIN_ARGV = ["--arch", "gpt3-1b", "--use-kernel", "--batch", str(TRAIN_BATCH), "--seq",
+              str(TRAIN_SEQ), "--log-every", "1", "--seed", "0"]
 
 
 def phase_train():
@@ -863,28 +889,129 @@ def _stage_sweep(cfg) -> tuple:
     return eff, floor
 
 
+PIPE_STEPS = 3
+# the schedules beyond contiguous, each with its V
+PIPE_SCHEDULES = (("1f1b", 1), ("zb-h1", 1), ("interleaved", 2), ("interleaved-1f1b", 2))
+FLAT_D = (2, 4)                 # 1F1B's memory check: microbatches of one sequence
+FLAT_D_BOUND = 0.10
+COST_RATIO = (2.0, 6.0)         # bwd/fwd of every cost-table entry
+COST_REPEAT_BOUND = 0.25        # the l 256, ctx 0 backward entry across two tables
+
+
+def _schedule_argv(schedule: str, V: int) -> list:
+    return ["--schedule", schedule] + (["--virtual-stages", str(V)] if V > 1 else [])
+
+
+def _step_memory(cfg, tcfg: TeraPipeConfig, batch: int) -> tuple:
+    """One pipelined step of ``batch`` sequences (kernels) from a seeded
+    init: ``(GiB allocated at the step's peak above its pre-step baseline,
+    the residual store's peak or None, step ms)``."""
+    model = build_model(cfg.replace(use_kernel=True))
+    params = tree_map(lambda p: p.requires_grad_(True), model.init(seed=0))
+    vg = make_terapipe_value_and_grad(model, tcfg, TRAIN_SEQ, batch, PIPE_RANKS)
+    toks = DataPipeline(SyntheticSource(cfg.vocab_size, 2), batch, TRAIN_SEQ).batch_at(0)
+    data = {k: torch.from_numpy(a).cuda() for k, a in toks.items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    loss, grads = vg(params, data)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if not torch.isfinite(loss):
+        raise AssertionError(f"memory run: non-finite loss {loss}")
+    return peak, getattr(vg, "residual_peak", None), ms
+
+
+def _flat_in_d(cfg) -> None:
+    """1F1B's claim: the step's memory does not grow with the microbatch
+    count D at a fixed microbatch (one sequence, M PIPE_SLICES), because the
+    residual store holds at most peak_live_items = min(D*M, K+M-1) units per
+    rank; contiguous, whose autograd keeps every unit to the drain, beside
+    it."""
+    got = {}
+    for schedule in ("1f1b", "contiguous"):
+        for d in FLAT_D:
+            tcfg = TeraPipeConfig(n_token_slices=PIPE_SLICES, n_microbatches=d, schedule=schedule)
+            torch.cuda.empty_cache()
+            peak, live, ms = _step_memory(cfg, tcfg, d)
+            assign = get_schedule(schedule, n_ranks=PIPE_RANKS, n_layers=cfg.n_layers,
+                                  n_microbatches=d)
+            want_live = assign.peak_live_items(d * PIPE_SLICES)
+            if live is not None and live != want_live:
+                raise AssertionError(f"{schedule} D {d}: residual peak {live} != "
+                                     f"peak_live_items {want_live}")
+            got[schedule, d] = peak
+            log(f"[pipeline] memory, {schedule}, D {d} x 1 sequence x seq {TRAIN_SEQ}, M "
+                f"{PIPE_SLICES}: step peak {peak:.3f} GiB above its baseline, live units per "
+                f"rank {want_live} (executor {live}), step {ms:.1f} ms")
+    a, b = (got["1f1b", d] for d in FLAT_D)
+    rel = abs(b - a) / a
+    log(f"[pipeline] 1f1b step memory D {FLAT_D[1]} vs D {FLAT_D[0]}: {b:.3f} vs {a:.3f} GiB "
+        f"({rel:.1%}, bound {FLAT_D_BOUND:.0%}); contiguous {got['contiguous', FLAT_D[1]]:.3f} "
+        f"vs {got['contiguous', FLAT_D[0]]:.3f} GiB")
+    if rel > FLAT_D_BOUND:
+        raise AssertionError(f"1f1b: step memory grows with D beyond {FLAT_D_BOUND:.0%}")
+
+
+def _cost_tables(cfg) -> None:
+    """The kernel cost table twice: each backward entry (dQ + dK/dV on one
+    saved forward) against its forward within COST_RATIO, and the l 256,
+    ctx 0 backward entry within COST_REPEAT_BOUND across the two."""
+    tables = [measure_kernel_cost_table(COST_PAIRS, batch=TRAIN_BATCH, n_heads=cfg.n_heads,
+                                        head_dim=cfg.hd, dtype=cfg.dtype, n_iters=10)
+              for _ in range(2)]
+    for rep, table in enumerate(tables, 1):
+        for key in COST_PAIRS:
+            f, b = table.t_fwd(*key), table.t_bwd(*key)
+            log(f"[pipeline] cost table {rep} (B {TRAIN_BATCH}, H {cfg.n_heads}, hd {cfg.hd}, "
+                f"bf16) l {key[0]} ctx {key[1]}: fwd {f * 1e3:.4f} ms, bwd {b * 1e3:.4f} ms, "
+                f"bwd/fwd {b / f:.3f}")
+            if not COST_RATIO[0] <= b / f <= COST_RATIO[1]:
+                raise AssertionError(f"cost table: bwd/fwd {b / f:.3f} at {key} outside "
+                                     f"{COST_RATIO}")
+    b1, b2 = (t.t_bwd(256, 0) for t in tables)
+    rel = abs(b1 - b2) / min(b1, b2)
+    log(f"[pipeline] cost table l 256 ctx 0 backward across two tables: {b1 * 1e3:.4f} vs "
+        f"{b2 * 1e3:.4f} ms ({rel:.1%}, bound {COST_REPEAT_BOUND:.0%})")
+    if rel > COST_REPEAT_BOUND:
+        raise AssertionError("cost table: the l 256, ctx 0 backward entry does not repeat")
+
+
 def phase_pipeline() -> dict:
     """gpt3-1b at full width through the token-slice pipeline on PIPE_RANKS
-    virtual ranks.  Returns the launches of its two main runs."""
+    virtual ranks.  Returns the launches of its main runs."""
     cfg = _gpt3_1b()
     torch.cuda.empty_cache()
     fit = _stage_sweep(cfg)
     torch.cuda.empty_cache()
-    _check_train_against_plain(cfg, {
-        f"K {PIPE_RANKS}, M {PIPE_SLICES}": TeraPipeConfig(n_token_slices=PIPE_SLICES),
-        f"K {PIPE_RANKS}, slices {list(PIPE_NONUNIFORM)}": TeraPipeConfig(
-            slice_lens=PIPE_NONUNIFORM)})
+    parity = {f"K {PIPE_RANKS}, M {PIPE_SLICES}": TeraPipeConfig(n_token_slices=PIPE_SLICES),
+              f"K {PIPE_RANKS}, slices {list(PIPE_NONUNIFORM)}": TeraPipeConfig(
+                  slice_lens=PIPE_NONUNIFORM)}
+    for schedule, V in PIPE_SCHEDULES:
+        parity[f"{schedule}, V {V}, K {PIPE_RANKS}, M {PIPE_SLICES}"] = TeraPipeConfig(
+            n_token_slices=PIPE_SLICES, schedule=schedule, virtual_stages=V)
+    _check_train_against_plain(cfg, parity)
     torch.cuda.empty_cache()
 
-    argv = TRAIN_ARGV + ["--mode", "terapipe", "--token-slices", str(PIPE_SLICES)]
-    counts, metrics = _train_run(cfg, argv, "pipeline",
-                                 _launches_per_step(cfg, PIPE_SLICES))
-    torch.cuda.empty_cache()
+    counts, runs = {}, {}
+    for schedule, V in (("contiguous", 1),) + PIPE_SCHEDULES:
+        argv = (TRAIN_ARGV + ["--mode", "terapipe", "--token-slices", str(PIPE_SLICES)]
+                + _schedule_argv(schedule, V))
+        counts[schedule], runs[schedule] = _train_run(
+            cfg, argv, f"pipeline {schedule}", _launches_per_step(cfg, PIPE_SLICES, schedule),
+            steps=PIPE_STEPS)
+        torch.cuda.empty_cache()
+    log("[pipeline] schedules, M " + str(PIPE_SLICES) + ": " + "; ".join(
+        f"{s} {m['step_ms']:.1f} ms/step, peak {m['peak_gib']:.2f} GiB"
+        for s, m in runs.items()))
 
     slices, plan = train_launch.plan_slices(cfg, TRAIN_SEQ, PIPE_RANKS, H100,
                                             batch=TRAIN_BATCH)
-    dp_counts, dp_metrics = _train_run(cfg, TRAIN_ARGV + ["--mode", "terapipe", "--dp-plan"],
-                                       "pipeline dp-plan", _launches_per_step(cfg, len(slices)))
+    counts["dp-plan"], dp_metrics = _train_run(
+        cfg, TRAIN_ARGV + ["--mode", "terapipe", "--dp-plan"], "pipeline dp-plan",
+        _launches_per_step(cfg, len(slices)), steps=PIPE_STEPS)
     # the model's own estimate of this step on one card: every stage of
     # every slice in turn, the whole batch, forward and backward (the
     # optimizer and the head are not in it)
@@ -895,17 +1022,14 @@ def phase_pipeline() -> dict:
         f"(Eq. 5: {PIPE_RANKS} cards, batch {TRAIN_BATCH}, fwd+bwd), on one card for batch "
         f"{TRAIN_BATCH} {one_card_ms:.3f} ms (the same model, stages in turn); measured "
         f"step {dp_metrics['step_ms']:.1f} ms vs uniform M {PIPE_SLICES} "
-        f"{metrics['step_ms']:.1f} ms")
+        f"{runs['contiguous']['step_ms']:.1f} ms")
     torch.cuda.empty_cache()
 
-    table = measure_kernel_cost_table(COST_PAIRS, batch=TRAIN_BATCH, n_heads=cfg.n_heads,
-                                      head_dim=cfg.hd, dtype=cfg.dtype, n_iters=10)
-    for key in COST_PAIRS:
-        log(f"[pipeline] cost table (B {TRAIN_BATCH}, H {cfg.n_heads}, hd {cfg.hd}, bf16) "
-            f"l {key[0]} ctx {key[1]}: fwd {table.t_fwd(*key) * 1e3:.4f} ms, bwd "
-            f"{table.t_bwd(*key) * 1e3:.4f} ms")
+    _flat_in_d(cfg)
+    torch.cuda.empty_cache()
+    _cost_tables(cfg)
     log(f"[pipeline] summary: H100 fit efficiency {fit[0]:.4f}, occupancy_floor {fit[1]}")
-    return {"terapipe": counts, "dp-plan": dp_counts}
+    return {f"terapipe {s}": c for s, c in counts.items()}
 
 
 # --------------------------------------------------------------- 6. times
@@ -1008,7 +1132,8 @@ def phase_times(errs: dict, launches: dict) -> list:
 
 # ------------------------------------------------------------ 7. profiles
 def phase_profiles() -> None:
-    """One gspmd step and one pipelined step (M = PIPE_SLICES) under
+    """One gspmd step and two pipelined steps (M = PIPE_SLICES, contiguous
+    and 1f1b) under
     torch.profiler, last: after a profiled region the host's eager launches
     run slower for the rest of the process, which a host-bound run (the
     pipelined step, the stage sweep) shows in its times, so every timed
@@ -1017,10 +1142,12 @@ def phase_profiles() -> None:
     torch.cuda.empty_cache()
     _profile_step(cfg, lambda model: value_and_grad(model.loss), "gspmd")
     torch.cuda.empty_cache()
-    tcfg = TeraPipeConfig(n_token_slices=PIPE_SLICES)
-    _profile_step(cfg, lambda model: make_terapipe_value_and_grad(
-        model, tcfg, TRAIN_SEQ, TRAIN_BATCH, PIPE_RANKS), f"terapipe M {PIPE_SLICES}")
-    torch.cuda.empty_cache()
+    for schedule in ("contiguous", "1f1b"):
+        tcfg = TeraPipeConfig(n_token_slices=PIPE_SLICES, schedule=schedule)
+        _profile_step(cfg, lambda model: make_terapipe_value_and_grad(
+            model, tcfg, TRAIN_SEQ, TRAIN_BATCH, PIPE_RANKS),
+            f"terapipe {schedule} M {PIPE_SLICES}")
+        torch.cuda.empty_cache()
 
 
 def main() -> int:

@@ -17,10 +17,11 @@ Three interchangeable models, copied from the reference:
   a sample of (i, j) pairs from any ground-truth model.
 
 New to the port: :func:`measure_kernel_cost_table` times the port's own
-attention op (CUDA events on the card), and :data:`H100`, a hardware spec
-whose ``efficiency`` and ``occupancy_floor`` were fitted to a stage sweep
-on the card.  ``TPU_V5E`` and ``V100_AWS`` are the reference's targets,
-kept so that plans can be compared with the reference's exactly.
+attention kernels, forward and dQ + dK/dV (CUDA events on the card), and
+:data:`H100`, a hardware spec whose ``efficiency`` and ``occupancy_floor``
+were fitted to a stage sweep on the card.  ``TPU_V5E`` and ``V100_AWS``
+are the reference's targets, kept so that plans can be compared with the
+reference's exactly.
 """
 from __future__ import annotations
 
@@ -299,22 +300,28 @@ def measure_kernel_cost_table(pairs, *, batch: int = 1, n_heads: int = 8,
                               head_dim: int = 64, dtype=None,
                               granularity: int = 1, n_iters: int = 5,
                               device="cuda") -> TableCostModel:
-    """Measured t_fwd/t_bwd entries from the port's attention op.
+    """Measured t_fwd/t_bwd entries from the port's attention kernels.
 
-    Times ``repro_torch.kernels.ops.terapipe_attention`` forward and its
-    autograd backward (the flash dQ and dK/dV kernels) on each ``(l, ctx)``
-    pair and returns a :class:`TableCostModel` whose bwd entries come from
-    the kernels the executor's backward runs (the paper's live-cluster
-    measurement loop, §4.1).  On ``cuda`` each entry is the median device
-    time of ``n_iters`` calls by CUDA events (:func:`repro_torch.timing.
-    time_ms`); on the CPU it is the mean wall clock of the plain path, good
-    for the table's shape only.
+    On each ``(l, ctx)`` pair, times the forward kernel and, on one saved
+    forward's ``(O, lse)`` and ``delta = rowsum(dO·O)``, the dQ and dK/dV
+    kernels the executor's backward runs, and returns a
+    :class:`TableCostModel` with both tables (the paper's live-cluster
+    measurement loop, §4.1).  The backward entry is the two kernels alone,
+    with none of the host's autograd dispatch around them.  On ``cuda`` each
+    entry is the median device time of ``n_iters`` calls by CUDA events
+    (:func:`repro_torch.timing.time_ms`); on the CPU it is the mean wall
+    clock of the plain versions, good for the table's shape only.
     """
     import time
 
-    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import terapipe_attention_bwd_ref, terapipe_attention_ref
+    from repro_torch.kernels.terapipe_attention import terapipe_attention_fwd
+    from repro_torch.kernels.terapipe_attention_bwd import terapipe_attention_bwd
 
     dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    fwd = terapipe_attention_fwd if on_card else terapipe_attention_ref
+    bwd = terapipe_attention_bwd if on_card else terapipe_attention_bwd_ref
     hkv = n_kv_heads or n_heads
     dtype = dtype or torch.float32
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -322,22 +329,16 @@ def measure_kernel_cost_table(pairs, *, batch: int = 1, n_heads: int = 8,
     bwd_tab: Dict[Tuple[int, int], float] = {}
     for l, ctx in pairs:
         sk = ctx + l
-        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype).requires_grad_(True)
-                   for shape in ((batch, l, n_heads, head_dim),
-                                 (batch, sk, hkv, head_dim), (batch, sk, hkv, head_dim)))
-        g = torch.ones((batch, l, n_heads, head_dim), dtype=dtype, device=dev)
-
-        def fwd(c=ctx):
-            with torch.no_grad():
-                return kops.terapipe_attention(q, k, v, ctx_len=c)
-
-        def vjp(c=ctx):                 # pays the forward's residuals + the backward
-            return torch.autograd.grad(kops.terapipe_attention(q, k, v, ctx_len=c),
-                                       (q, k, v), g)
-
-        if dev.type == "cuda":
-            t_f = time_ms(fwd, iters=n_iters) / 1e3
-            t_fb = time_ms(vjp, iters=n_iters) / 1e3
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for shape in ((batch, l, n_heads, head_dim), (batch, sk, hkv, head_dim),
+                                     (batch, sk, hkv, head_dim), (batch, l, n_heads, head_dim)))
+        out, lse = fwd(q, k, v, ctx)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        run_fwd = lambda: fwd(q, k, v, ctx)
+        run_bwd = lambda: bwd(q, k, v, do, lse, delta, ctx)
+        if on_card:
+            t_f = time_ms(run_fwd, iters=n_iters) / 1e3
+            t_b = time_ms(run_bwd, iters=n_iters) / 1e3
         else:
             def wall(fn):
                 fn()
@@ -345,11 +346,11 @@ def measure_kernel_cost_table(pairs, *, batch: int = 1, n_heads: int = 8,
                 for _ in range(n_iters):
                     fn()
                 return (time.perf_counter() - t0) / n_iters
-            t_f, t_fb = wall(fwd), wall(vjp)
+            t_f, t_b = wall(run_fwd), wall(run_bwd)
         key = (granularity * int(round(l / granularity)),
                granularity * int(round(ctx / granularity)))
         fwd_tab[key] = t_f
-        bwd_tab[key] = max(t_fb - t_f, t_f)     # bwd-only, floored at fwd
+        bwd_tab[key] = max(t_b, t_f)            # floored at the forward
     return TableCostModel(fwd_tab, granularity=granularity, bwd_table=bwd_tab)
 
 

@@ -1,27 +1,46 @@
-"""TeraPipe: token-level pipeline parallelism, the ``contiguous`` schedule
-on K virtual ranks in one process (reference: ``repro/core/pipeline.py``).
+"""TeraPipe: token-level pipeline parallelism on K virtual ranks in one
+process, under every registered training schedule (reference:
+``repro/core/pipeline.py``).
 
 The paper's execution model (§3.2), as the reference runs it:
 
-* the main layer stack is cut into K stages; stage k runs on rank k
+* the main layer stack is cut into K·V chunks; rank k holds chunks
+  ``v = 0..V-1``, global stages ``s = v·K + k``
   (``StageAssignment.layer_rows``);
 * a minibatch is cut into D microbatches × M token slices; work item
   ``i = d·M + m`` enters stage 0 at its tick and flows down the ranks, one
   ring shift per tick;
-* each stage keeps a KV cache per layer of the prefix of the current
-  microbatch it has already processed, so slice m attends at context
-  offset ``ctx = l_0 + … + l_{m-1}`` (the paper's t_fwd(l, ctx)).
+* each (rank, chunk) keeps a KV cache per layer of the prefix of the
+  current microbatch it has already processed, so slice m attends at
+  context offset ``ctx = l_0 + … + l_{m-1}`` (the paper's t_fwd(l, ctx)).
 
 Which unit runs where and when comes from the schedule IR
 (``core/schedules``): a Python tick loop reads each rank's
 ``(work_item, chunk, kind)`` from ``assign.tick_table(D·M)`` and runs it.
-The activations move between ranks through a transport with one ``shift``
-method (:class:`LocalRing`, in process), so that a ``torch.distributed``
-ring can later stand behind the same call (ROADMAP Queue 1 item 9).  The
-backward pass is autograd over the whole tick loop, as
-``jax.value_and_grad`` of the reference's scan is: caches are written out
-of place under grad (``models/attention.py::_write_rows``), so each slice's
-K/V cotangent flows back through every later slice's attention.
+Values move between ranks through a transport with one ``shift`` method
+(:class:`LocalRing`, in process), so that a ``torch.distributed`` ring can
+later stand behind the same call (ROADMAP Queue 1 item 9).  The comm plan
+(``assign.comm_plan()``) adds destination-side skew buffers, ``hold + 1``
+deep, pushed every tick and read ``hold`` ticks later: ``fwd_hold`` on the
+forward wrap edge (rank K-1 → 0), ``rev_hold`` on the reverse wrap edge
+(rank 0 → K-1), and ``rev_lag`` on every reverse edge.
+
+Two kinds of schedule, as in the reference:
+
+* **forward-only** (``contiguous``, ``interleaved``): the backward pass is
+  autograd over the whole tick loop, as ``jax.value_and_grad`` of the
+  reference's scan is.  Caches are written out of place under grad
+  (``models/attention.py::_write_rows``), so each slice's K/V cotangent
+  flows back through every later slice's attention.
+* **explicit backward** (``1f1b``, ``interleaved-1f1b``, ``zb-h1``): forward
+  units run without autograd and save their inputs; a backward unit
+  recomputes its stage forward under grad from them and calls
+  ``torch.autograd.grad`` (the reference's per-unit ``jax.vjp``).  The last
+  global stage adds the per-slice LM loss.  The stage-granular recompute is
+  the remat, so the blocks run without checkpoint inside it.  Under
+  ``zb-h1`` the B unit takes the gradient of the unit's inputs only and
+  keeps its graph for the W unit one tick later on the same rank, which
+  takes the parameters' gradient against the same cotangents.
 
 What differs from the reference, and why the result does not:
 
@@ -33,28 +52,35 @@ What differs from the reference, and why the result does not:
   cache to ``L + l``, pads the sequence and sends idle ticks' outputs to a
   dump row, all to keep a traced ``lax.scan`` shape-stable.  Here each
   slice runs at its own length at its own ``ctx`` (a host int), an idle
-  tick does nothing, and the cache is ``L`` long.  The loss and the
-  gradients on every valid token are the same.
-* **Uneven stages.** When K does not divide the layer count the reference
-  pads the stack with zero (identity) blocks; here a stage runs the real
-  layers among its ``layer_rows`` and skips the pad rows, which is exact.
-* **Schedules.** Only ``contiguous`` executes (and GPipe, its M = 1 case).
-  The other registered schedules raise ``NotImplementedError`` naming
-  ROADMAP Queue 1 item 6.  There is no rolled/unrolled distinction: that
-  is one of JAX tracing.
+  tick does nothing, and the cache is ``L`` long.  A backward unit takes
+  the cache rows ``[0, ctx + l)`` it reads, so its calls are shaped by
+  ``(stage, l, ctx)`` alone.  The loss and the gradients on every valid
+  token are the same.
+* **Uneven stages.** When K·V does not divide the layer count the
+  reference pads the stack with zero (identity) blocks; here a chunk runs
+  the real layers among its ``layer_rows`` and skips the pad rows, which is
+  exact.  Parameters stay in layer order: a chunk takes its rows by
+  slicing, so no ``interleave_stacked`` is needed.
+* **Per-microbatch caches.** A forward unit writes its cache rows in place
+  (no autograd), and its saved residual refers to that cache, which no
+  later unit of the microbatch changes below ``ctx + l``.  Each microbatch
+  gets new cache tensors at its first slice, since under 1F1B the next
+  microbatch starts on a rank before this one's backward ends there.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.models import Model
-from repro_torch.models.lm import BlockGroup, _remat, _unstack
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.models.common import rms_norm
+from repro_torch.models.lm import BlockGroup, _remat, _unstack, _xent_chunk
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-from .schedules import KIND_FWD, get_schedule, schedule_names
+from .schedules import (KIND_BWD, KIND_BWD_INPUT, KIND_BWD_WEIGHT, KIND_FWD, get_schedule,
+                        schedule_names)
 
 #: registered schedule names (core/schedules registry): the CLI choices
 SCHEDULES = schedule_names()
@@ -71,7 +97,8 @@ class TeraPipeConfig:
     slice_lens: Optional[Tuple[int, ...]] = None
     n_microbatches: int = 1          # D
     cache_dtype: Any = torch.bfloat16
-    # V: virtual stages per rank; V > 1 (interleaving) is not ported yet
+    # V: virtual stages (layer chunks) per rank; V > 1 needs D·M divisible
+    # by K (work items advance in ring groups of K)
     virtual_stages: int = 1
     # which schedule table drives the tick loop (core/schedules registry);
     # "contiguous" with virtual_stages > 1 is promoted to "interleaved", as
@@ -85,14 +112,58 @@ class TeraPipeConfig:
 class LocalRing:
     """Ring transport of K virtual ranks in one process: ``shift`` hands
     each rank the value its ring predecessor sent (the reference's
-    ``ppermute`` over ``(j, (j + 1) % K)``)."""
+    ``ppermute`` over ``(j, (j + step) % K)``): ``step`` 1 is the forward
+    ring, -1 the reverse (cotangent) ring."""
 
     def __init__(self, n_ranks: int):
         self.n_ranks = n_ranks
 
-    def shift(self, sent: List[Any]) -> List[Any]:
+    def shift(self, sent: List[Any], step: int = 1) -> List[Any]:
         assert len(sent) == self.n_ranks, (len(sent), self.n_ranks)
-        return [sent[(k - 1) % self.n_ranks] for k in range(self.n_ranks)]
+        return [sent[(k - step) % self.n_ranks] for k in range(self.n_ranks)]
+
+
+class _Saved(NamedTuple):
+    """A forward unit's inputs, kept for its backward: the activation, the
+    microbatch's (k, v) caches of the chunk (referred to, not copied) and
+    the context offset."""
+    x: torch.Tensor
+    caches: list
+    ctx: int
+
+
+class _ResidualStore:
+    """Saved values of units whose retiring backward has not run, per rank
+    keyed ``(chunk, item % spread)``, the reference's ``(V, R)`` ring
+    buffer.  Writing a slot that is still live raises (the IR audit makes
+    the keys collision-free).  ``peak`` is the most entries one rank held
+    at once, summed over its chunks: ``assign.peak_live_items(D·M)``."""
+
+    def __init__(self, n_ranks: int, spread: int):
+        self.spread = spread
+        self.slots: Dict[Tuple[int, int, int], Tuple[int, Any]] = {}
+        self.live = [0] * n_ranks
+        self.peak = 0
+
+    def put(self, k: int, v: int, i: int, value) -> None:
+        key = (k, v, i % self.spread)
+        assert key not in self.slots, (
+            f"residual slot {key} written by item {i} while item "
+            f"{self.slots.get(key, (None,))[0]} holds it")
+        self.slots[key] = (i, value)
+        self.live[k] += 1
+        self.peak = max(self.peak, self.live[k])
+
+    def get(self, k: int, v: int, i: int):
+        item, value = self.slots[(k, v, i % self.spread)]
+        assert item == i, (k, v, i, item)
+        return value
+
+    def pop(self, k: int, v: int, i: int):
+        value = self.get(k, v, i)
+        del self.slots[(k, v, i % self.spread)]
+        self.live[k] -= 1
+        return value
 
 
 def _main_group(model: Model) -> BlockGroup:
@@ -108,7 +179,8 @@ def _main_group(model: Model) -> BlockGroup:
 
 class _Plan:
     """Everything the executor derives from (model, tcfg, shapes, K): slice
-    geometry, the schedule assignment, the stage-local block function."""
+    geometry, the schedule assignment and comm plan, each chunk's layer
+    rows, the stage-local block function."""
 
     def __init__(self, model: Model, tcfg: TeraPipeConfig, seq_len: int,
                  global_batch: int, n_ranks: int):
@@ -117,18 +189,16 @@ class _Plan:
         self.D = D = tcfg.n_microbatches
         self.L, self.B = L, B = seq_len, global_batch
 
-        V = tcfg.virtual_stages
-        sched = "interleaved" if tcfg.schedule == "contiguous" and V > 1 else tcfg.schedule
+        self.V = V = tcfg.virtual_stages
+        self.sched = "interleaved" if tcfg.schedule == "contiguous" and V > 1 else tcfg.schedule
         self.main = _main_group(model)
         self.n_main = self.main.count
         # the registry validates the (schedule, V) combination and builds
         # the IR value the tick loop interprets
-        self.assign = get_schedule(sched, n_ranks=K, n_layers=self.n_main,
+        self.assign = get_schedule(self.sched, n_ranks=K, n_layers=self.n_main,
                                    virtual_stages=V, n_microbatches=D)
-        if sched != "contiguous":
-            raise NotImplementedError(
-                f"schedule {sched!r} (V={V}): the port's executor runs the "
-                f"contiguous schedule; the others are ROADMAP Queue 1 item 6")
+        self.comm = self.assign.comm_plan()
+        assert not (self.comm.rev_hold and self.comm.rev_lag), self.comm
 
         if tcfg.slice_lens is not None:
             slice_lens = tuple(int(s) for s in tcfg.slice_lens)
@@ -142,6 +212,15 @@ class _Plan:
         assert B % D == 0, (B, D)
         self.mb = B // D
         self.DM = D * self.M
+        self.tab = self.assign.tick_table(self.DM)   # validates D·M against K, V
+
+        # per (rank, chunk): the real layers [lo, hi) of its global stage
+        self.rows = {}
+        for k in range(K):
+            for v in range(V):
+                lo, hi = self.assign.layer_rows(self.assign.stage_of(k, v))
+                self.rows[k, v] = (min(lo, self.n_main), min(hi, self.n_main))
+        self.last = (K - 1, V - 1)                   # the last global stage
 
         # the model's own config decides the attention route (use_kernel)
         self.cfg = model.cfg
@@ -153,31 +232,35 @@ class _Plan:
         pre-pipeline groups)."""
         return self.model.embed(params, batch, 0).to(self.cfg.dtype)
 
-    def stage_layers(self, main_params) -> List[list]:
-        """Per rank, the per-layer parameter dicts of its stage: the real
-        layers among ``layer_rows``; pad rows are skipped."""
-        layers = _unstack(main_params)
-        out = []
-        for k in range(self.K):
-            lo, hi = self.assign.layer_rows(self.assign.stage_of(k, 0))
-            out.append(layers[lo:min(hi, self.n_main)])
-        return out
+    def rows_of(self, a: torch.Tensor, d: int, m: int) -> torch.Tensor:
+        """Microbatch ``d``'s rows of slice ``m`` of a (B, L, ...) tensor."""
+        ctx = self.starts[m]
+        return a[d * self.mb:(d + 1) * self.mb, ctx:ctx + self.slice_lens[m]]
+
+    def chunk_layers(self, main_params, leaf=lambda a: a) -> Dict[Tuple[int, int], list]:
+        """Per (rank, chunk), the per-layer parameter dicts of its rows,
+        each leaf ``leaf`` of its row's view.  One unbind per stacked leaf:
+        under autograd the backward pass stacks each leaf's gradient once
+        rather than scattering each chunk's into a zero tensor of the whole
+        stack."""
+        layers = [tree_map(leaf, layer) for layer in _unstack(main_params)]
+        return {kv: layers[lo:hi] for kv, (lo, hi) in self.rows.items()}
 
     def fresh_caches(self, n_layers: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-        """Zero (k, v) caches of ``n_layers`` layers for one microbatch."""
+        """New zero (k, v) caches of ``n_layers`` layers for one microbatch."""
         cfg = self.cfg
         shape = (self.mb, self.L, cfg.n_kv_heads, cfg.hd)
         zeros = lambda: torch.zeros(shape, dtype=self.tcfg.cache_dtype,
                                     device=self.model.device)
         return [(zeros(), zeros()) for _ in range(n_layers)]
 
-    def stage_apply(self, layers, x, caches, ctx: int):
-        """One stage's forward of one slice at offset ``ctx``: its blocks in
-        order, each under non-reentrant checkpoint when ``cfg.remat`` and
+    def stage_apply(self, layers, x, caches, ctx: int, remat: bool = False):
+        """One chunk's forward of one slice at offset ``ctx``: its blocks in
+        order, each under non-reentrant checkpoint when ``remat`` and
         autograd is recording (the reference's per-block
         ``jax.checkpoint``)."""
         block = self.block_fn
-        if self.cfg.remat and torch.is_grad_enabled():
+        if remat and torch.is_grad_enabled():
             block = _remat(self.block_fn, self.cfg)
         new = []
         for bp, c in zip(layers, caches):
@@ -186,43 +269,84 @@ class _Plan:
         return x, new
 
 
-def _run_ticks(p: _Plan, params, x_emb: torch.Tensor):
-    """The tick loop.  Returns the last rank's output of every work item (in
-    item order) and each rank's final caches."""
-    tab = p.assign.tick_table(p.DM)
-    stages = p.stage_layers(params["groups"][p.main.name])
-    caches: List[list] = [[] for _ in range(p.K)]
-    outs: List[Optional[torch.Tensor]] = [None] * p.DM
-    received: List[Optional[torch.Tensor]] = [None] * p.K
+def _run_ticks(p: _Plan, run_fwd: Callable, run_bwd: Optional[Callable] = None) -> None:
+    """The tick interpreter.  Per tick, every value the rings delivered
+    lands in its rank's skew buffer (idle ticks included); then each rank
+    runs its unit: ``run_fwd(k, v, i, x_in)`` returns the activation for
+    the forward ring (``x_in`` is None where rank 0 admits the item from
+    the embedding), ``run_bwd(k, v, i, kind, g)`` the cotangent for the
+    reverse ring or None (``g`` is None at the last global stage, which
+    seeds from its own loss).  A buffer is read ``hold`` (or ``rev_lag``)
+    ticks after the push, on the tick the schedule consumes the value."""
+    K, tab, comm = p.K, p.tab, p.comm
+    hx, hg = comm.fwd_hold + 1, max(comm.rev_hold, comm.rev_lag) + 1
+    xbuf = [[None] * hx for _ in range(K)]
+    gbuf = [[None] * hg for _ in range(K)]
+    x_recv: List[Any] = [None] * K
+    g_recv: List[Any] = [None] * K
     for t in range(tab.shape[0] + p.tcfg.extra_ticks):
-        sent: List[Optional[torch.Tensor]] = [None] * p.K
-        for k in range(p.K):
+        for k in range(K):
+            xbuf[k][t % hx] = x_recv[k]
+            gbuf[k][t % hg] = g_recv[k]
+        x_sent: List[Any] = [None] * K
+        g_sent: List[Any] = [None] * K
+        for k in range(K):
             if t >= tab.shape[0] or tab[t, k, 0] < 0:
                 continue                              # idle: nothing runs
-            i, chunk, kind = (int(a) for a in tab[t, k])
-            assert kind == KIND_FWD and chunk == 0, (t, k, kind, chunk)
-            d, m = divmod(i, p.M)
-            ctx, l = p.starts[m], p.slice_lens[m]
-            if k == 0:                                # rank 0 admits new work
-                x_in = x_emb[d * p.mb:(d + 1) * p.mb, ctx:ctx + l]
-            else:
-                x_in = received[k]
-            if m == 0:                                # new microbatch: fresh prefix
-                caches[k] = p.fresh_caches(len(stages[k]))
-            sent[k], caches[k] = p.stage_apply(stages[k], x_in, caches[k], ctx)
-            if k == p.K - 1:
-                outs[i] = sent[k]
-        received = p.ring.shift(sent)
+            i, v, kind = (int(a) for a in tab[t, k])
+            if kind == KIND_FWD:
+                x_in = None
+                if (k, v) != (0, 0):                  # rank 0 chunk 0 admits new work
+                    hold = comm.fwd_hold if k == 0 else 0
+                    x_in = xbuf[k][(t - hold) % hx]
+                    assert x_in is not None, (t, k, v, i)
+                x_sent[k] = run_fwd(k, v, i, x_in)
+                continue
+            g = None
+            if (k, v) != p.last and kind != KIND_BWD_WEIGHT:
+                lag = comm.rev_lag or (comm.rev_hold if k == K - 1 else 0)
+                g = gbuf[k][(t - lag) % hg]
+                assert g is not None, (t, k, v, i, kind)
+            g_sent[k] = run_bwd(k, v, i, kind, g)
+        x_recv = p.ring.shift(x_sent)
+        if comm.rev_ring:
+            g_recv = p.ring.shift(g_sent, step=-1)
+
+
+def _run_forward(p: _Plan, params, x_emb: torch.Tensor):
+    """Forward-only schedules: the tick loop under the caller's autograd
+    mode.  Returns the last global stage's output of every work item (in
+    item order) and each (rank, chunk)'s final caches."""
+    chunks = p.chunk_layers(params["groups"][p.main.name])
+    caches: Dict[Tuple[int, int], list] = {}
+    outs: List[Optional[torch.Tensor]] = [None] * p.DM
+
+    def run_fwd(k, v, i, x_in):
+        d, m = divmod(i, p.M)
+        if x_in is None:
+            x_in = p.rows_of(x_emb, d, m)
+        if m == 0:                                    # new microbatch: fresh prefix
+            caches[k, v] = p.fresh_caches(len(chunks[k, v]))
+        x_out, caches[k, v] = p.stage_apply(chunks[k, v], x_in, caches[k, v],
+                                            p.starts[m], remat=p.cfg.remat)
+        if (k, v) == p.last:
+            outs[i] = x_out
+        return x_out
+
+    _run_ticks(p, run_fwd)
     return outs, caches
 
 
 def _make_loss_from_plan(p: _Plan) -> Callable:
-    """Differentiable loss over the tick loop: reassemble the last rank's
+    """Differentiable loss over the tick loop: reassemble the last stage's
     per-item outputs into ``(B, L, d)`` and run the head and the chunked
     loss on it, as the reference's ``_make_loss_from_plan`` does."""
+    if p.assign.has_backward:
+        raise ValueError(f"schedule {p.sched!r} computes the loss and its gradients in one "
+                         f"pass; build it with make_terapipe_value_and_grad")
 
     def loss_fn(params, batch) -> torch.Tensor:
-        outs, _ = _run_ticks(p, params, p.prefix(params, batch))
+        outs, _ = _run_forward(p, params, p.prefix(params, batch))
         x_final = torch.cat([torch.cat(outs[d * p.M:(d + 1) * p.M], dim=1)
                              for d in range(p.D)], dim=0)
         return p.model.head_loss(params, x_final, batch["labels"])
@@ -230,25 +354,169 @@ def _make_loss_from_plan(p: _Plan) -> Callable:
     return loss_fn
 
 
+def _make_explicit_value_and_grad(p: _Plan) -> Callable:
+    """``(params, batch) -> (loss, grads)`` of an explicit-backward schedule
+    (reference ``_make_explicit_value_and_grad`` and the bwd branches of
+    ``_make_pipeline_body``, ``:602-713``): one tick loop computes the loss
+    and every gradient; the embedding's comes from one autograd pass over
+    the prologue at the end."""
+    tied = p.cfg.tie_embeddings
+    spread = p.assign.residual_spread(p.DM)
+    inv_total = 1.0 / float(p.B * p.L)
+    main_name = p.main.name
+
+    def value_and_grad_fn(params, batch):
+        main = params["groups"][main_name]
+        # per (rank, chunk): its layers' parameters as autograd leaves of
+        # their own, so each unit's gradients are its layers'
+        with torch.no_grad():
+            layers = p.chunk_layers(main, lambda a: a.detach().requires_grad_())
+        final_ln = params["final_ln"].detach().requires_grad_()
+        w_head_leaf = (params["embed"] if tied else params["lm_head"]).detach().requires_grad_()
+        labels = batch["labels"]
+        with torch.enable_grad():
+            embed = params["embed"].detach().requires_grad_()
+            x_emb = p.prefix({**params, "embed": embed}, batch)
+        x_det = x_emb.detach()
+
+        f32 = lambda a: torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+        d_main = tree_map(f32, main)
+        d_layers = p.chunk_layers(d_main)
+        d_head = [f32(final_ln), f32(w_head_leaf)]
+        d_emb = torch.zeros_like(x_det)
+        loss = torch.zeros((), dtype=torch.float32, device=x_det.device)
+        caches: Dict[Tuple[int, int], list] = {}
+        gcache: Dict[Tuple[int, int], list] = {}     # cache cotangent of the later slices
+        store = _ResidualStore(p.K, spread)
+        held = _ResidualStore(p.K, spread)            # zb-h1: B's graph, replayed by W
+
+        def run_fwd(k, v, i, x_in):
+            d, m = divmod(i, p.M)
+            if x_in is None:
+                x_in = p.rows_of(x_det, d, m)
+            if m == 0:
+                caches[k, v] = p.fresh_caches(len(layers[k, v]))
+            with torch.no_grad():
+                x_out, _ = p.stage_apply(layers[k, v], x_in, caches[k, v], p.starts[m])
+            store.put(k, v, i, _Saved(x_in, caches[k, v], p.starts[m]))
+            return x_out
+
+        def unit_graph(k, v, i, saved, g):
+            """The unit's forward again, under grad, from its saved inputs:
+            ``(outputs, cotangents, input leaves, param leaves)``.  The
+            cache leaves are rows [0, ctx + l), the rows the unit reads; at
+            the first slice they are zeros and no input.  The last stage's
+            outputs are its slice's loss (seed 1) and no activation."""
+            d, m = divmod(i, p.M)
+            ctx, l = saved.ctx, saved.x.shape[1]
+            x_in = saved.x.detach().requires_grad_()
+            c_in = [tuple(c[:, :ctx + l].detach().requires_grad_(m > 0) for c in kv)
+                    for kv in saved.caches]
+            with torch.enable_grad():
+                x_out, c_out = p.stage_apply(layers[k, v], x_in, c_in, ctx)
+                if (k, v) == p.last:             # rms_norm, head, f32 cross-entropy
+                    w_head = w_head_leaf.T if tied else w_head_leaf
+                    ls = _xent_chunk(rms_norm(x_out, final_ln), w_head,
+                                     p.rows_of(labels, d, m)) * inv_total
+                    outs, cots = [ls], [torch.ones((), device=ls.device)]
+                else:
+                    outs, cots = [x_out], [g]
+            if m < p.M - 1:
+                for new, dc in zip(c_out, gcache[k, v]):
+                    outs += list(new)
+                    cots += [a[:, :ctx + l] for a in dc]
+            inputs = [x_in] + ([c for kv in c_in for c in kv] if m > 0 else [])
+            params_in = list(tree_leaves(layers[k, v]))
+            if (k, v) == p.last:
+                params_in += [final_ln, w_head_leaf]
+            return outs, cots, inputs, params_in
+
+        def apply_input_cots(k, v, i, grads, outs):
+            """The input cotangent onto the reverse ring (or, at rank 0
+            chunk 0, into the embedding's), the cache cotangent for the
+            microbatch's earlier slices, and the loss term."""
+            d, m = divmod(i, p.M)
+            nonlocal loss
+            if (k, v) == p.last:
+                loss = loss + outs[0].detach().float()
+            if m > 0:
+                gcache[k, v] = list(zip(grads[1::2], grads[2::2]))   # (dk, dv) per layer
+            else:
+                gcache.pop((k, v), None)
+            if (k, v) == (0, 0):
+                p.rows_of(d_emb, d, m).copy_(grads[0])
+                return None
+            return grads[0]
+
+        def apply_param_cots(k, v, grads):
+            """Parameter gradients summed in f32 into the chunk's rows."""
+            n = len(grads) - (2 if (k, v) == p.last else 0)
+            for acc, g in zip(tree_leaves(d_layers[k, v]), grads[:n]):
+                acc += g.float()
+            for acc, g in zip(d_head, grads[n:]):
+                acc += g.float()
+
+        def run_bwd(k, v, i, kind, g):
+            if kind == KIND_BWD_WEIGHT:              # W: the params' gradient, B's graph
+                outs, cots, params_in = held.pop(k, v, i)
+                if params_in:                       # not a chunk of pad rows only
+                    apply_param_cots(k, v, torch.autograd.grad(outs, params_in, cots))
+                store.pop(k, v, i)
+                return None
+            assert kind in (KIND_BWD, KIND_BWD_INPUT), kind
+            if kind == KIND_BWD:                     # fused: params and inputs at once
+                outs, cots, inputs, params_in = unit_graph(k, v, i, store.pop(k, v, i), g)
+                grads = torch.autograd.grad(outs, inputs + params_in, cots)
+                apply_param_cots(k, v, grads[len(inputs):])
+                return apply_input_cots(k, v, i, grads[:len(inputs)], outs)
+            # B: the inputs' gradient now; the graph waits a tick for W
+            outs, cots, inputs, params_in = unit_graph(k, v, i, store.get(k, v, i), g)
+            grads = torch.autograd.grad(outs, inputs, cots, retain_graph=True)
+            held.put(k, v, i, (outs, cots, params_in))
+            return apply_input_cots(k, v, i, grads, outs)
+
+        _run_ticks(p, run_fwd, run_bwd)
+        assert not store.slots and not held.slots, "units left without their backward"
+        value_and_grad_fn.residual_peak = store.peak
+
+        (d_embed,) = torch.autograd.grad(x_emb, embed, d_emb)
+        named = {"embed": d_embed.float(), "final_ln": d_head[0]}
+        if tied:
+            named["embed"] = named["embed"] + d_head[1]
+        else:
+            named["lm_head"] = d_head[1]
+        named["groups"] = {main_name: d_main}
+        grads = {key: tree_map(lambda g, a: g.to(a.dtype), named[key], params[key])
+                 for key in params}
+        return loss, grads
+
+    return value_and_grad_fn
+
+
 def make_terapipe_loss(model: Model, tcfg: TeraPipeConfig, seq_len: int,
                        global_batch: int, n_ranks: int) -> Callable:
-    """``loss_fn(params, batch)`` of the pipelined step (differentiate it
-    with autograd, or use :func:`make_terapipe_value_and_grad`)."""
+    """``loss_fn(params, batch)`` of the pipelined step under a
+    forward-only schedule (differentiate it with autograd, or use
+    :func:`make_terapipe_value_and_grad`, which serves every schedule).
+    Explicit-backward schedules raise ``ValueError``."""
     return _make_loss_from_plan(_Plan(model, tcfg, seq_len, global_batch, n_ranks))
 
 
 def make_terapipe_caches_fn(model: Model, tcfg: TeraPipeConfig, seq_len: int,
                             global_batch: int, n_ranks: int) -> Callable:
     """Debug/testing: ``(params, batch) -> (k, v)`` final caches of the
-    same tick loop, each ``(n_layers, B/D, L, Hkv, hd)`` in layer order (the
-    layout of ``model.init_caches``), run without autograd.  With
+    same tick loop under a forward-only schedule, each ``(n_layers, B/D, L,
+    Hkv, hd)`` in layer order (global stage ``s = v·K + k``, the layout of
+    ``model.init_caches``), run without autograd.  With
     ``tcfg.extra_ticks`` appended the result must be bit-identical."""
     p = _Plan(model, tcfg, seq_len, global_batch, n_ranks)
+    assert not p.assign.has_backward, "forward-only schedules expose the caches"
 
     @torch.no_grad()
     def caches_fn(params, batch):
-        _, caches = _run_ticks(p, params, p.prefix(params, batch))
-        layers = [c for rank in caches for c in rank]
+        _, caches = _run_forward(p, params, p.prefix(params, batch))
+        stages = range(p.K * p.V)
+        layers = [c for s in stages for c in caches[s % p.K, s // p.K]]
         return (torch.stack([k for k, _ in layers]), torch.stack([v for _, v in layers]))
 
     return caches_fn
@@ -269,10 +537,16 @@ def value_and_grad(loss_fn: Callable) -> Callable:
 
 def make_terapipe_value_and_grad(model: Model, tcfg: TeraPipeConfig, seq_len: int,
                                  global_batch: int, n_ranks: int) -> Callable:
-    """``(params, batch) -> (loss, grads)`` for the pipelined step, the one
-    entry point the trainer drives (the reference's fwd-only branch,
-    ``pipeline.py:968-982``).  Explicit-backward schedules raise."""
-    return value_and_grad(make_terapipe_loss(model, tcfg, seq_len, global_batch, n_ranks))
+    """``(params, batch) -> (loss, grads)`` for the pipelined step under any
+    registered training schedule, the one entry point the trainer drives
+    (reference ``pipeline.py:968-982``): autograd over the tick loop for
+    the forward-only schedules, the explicit backward units otherwise.  An
+    explicit schedule's function keeps, as ``residual_peak``, the most
+    saved units one rank held in its last call."""
+    p = _Plan(model, tcfg, seq_len, global_batch, n_ranks)
+    if p.assign.has_backward:
+        return _make_explicit_value_and_grad(p)
+    return value_and_grad(_make_loss_from_plan(p))
 
 
 def make_gpipe_loss(model: Model, *, n_microbatches: int, seq_len: int,

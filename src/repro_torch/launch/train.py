@@ -18,12 +18,12 @@ Modes:
   step;
 * ``terapipe``: the token-slice pipeline (``core/pipeline.py``) on
   ``PIPE_RANKS`` virtual ranks, M = ``--token-slices`` uniform slices or the
-  slices that Algorithm 1 plans (``--dp-plan``), D = ``--microbatches``;
+  slices that Algorithm 1 plans (``--dp-plan``), D = ``--microbatches``,
+  under ``--schedule`` with ``--virtual-stages`` chunks per rank;
 * ``gpipe``: the same executor with D microbatches and M = 1.
-The pipelined modes never fall back to the gspmd step.  The schedules
-other than ``contiguous``, ``--virtual-stages > 1`` and the
-checkpoint/supervisor loop are not ported yet: their flags raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+The pipelined modes never fall back to the gspmd step.  The
+checkpoint/supervisor loop is not ported yet: its flags raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
 """
 from __future__ import annotations
 
@@ -53,7 +53,6 @@ PIPE_RANKS = 4
 
 # flag -> (value that means "not asked for", ROADMAP Queue 1 item that ports it)
 _UNPORTED = {
-    "virtual_stages": (1, "item 6 (interleaved schedules)"),
     "checkpoint_dir": (None, "item 5 (checkpoint/manager.py and the supervisor)"),
     "resume": (False, "item 5 (checkpoint/manager.py and the supervisor)"),
     "simulate_failure_at": (-1, "item 5 (checkpoint/manager.py and the supervisor)"),
@@ -61,10 +60,6 @@ _UNPORTED = {
 
 
 def _check_ported(args) -> None:
-    if args.schedule != "contiguous":
-        raise NotImplementedError(
-            f"--schedule {args.schedule}: not yet ported to the executor (ROADMAP Queue 1 "
-            f"item 6, the other schedules); the port runs the contiguous schedule")
     for name, (default, item) in _UNPORTED.items():
         if getattr(args, name) != default:
             flag = "--" + name.replace("_", "-")
@@ -72,21 +67,24 @@ def _check_ported(args) -> None:
 
 
 def plan_slices(cfg, seq: int, n_ranks: int, hw: HardwareSpec, *, microbatches: int = 1,
-                batch: int = 1):
+                batch: int = 1, schedule: str = "contiguous", virtual_stages: int = 1):
     """Algorithm 1 end to end, the reference's ``--dp-plan`` block
-    (``repro/launch/train.py:57-124``) for the contiguous schedule: plan the
-    slicing at granularity ``seq // 16`` on the analytic model of ``hw``
-    with ``batch`` sequences per slice, make it executable, then rank every
-    registered schedule on it with the simulator.  Prints the ``[dp-plan]``
-    lines; returns ``(slice_lens, DPResult)``."""
+    (``repro/launch/train.py:51-120``): plan the slicing at granularity
+    ``seq // 16`` and ``virtual_stages`` on the analytic model of ``hw``
+    with ``batch`` sequences per slice, make it executable for
+    ``schedule`` (the promoted one), then rank every registered schedule on
+    it with the simulator, each at ``V = max(virtual_stages, min_virtual)``
+    where its V is free.  Prints the ``[dp-plan]`` lines; returns
+    ``(slice_lens, DPResult)``."""
     layers = max(1, cfg.n_layers // n_ranks)
     cm = AnalyticCostModel(cfg, hw, layers_per_stage=layers, batch=batch)
     g = max(1, seq // 16)
-    plan: DPResult = optimal_slicing(cm, seq, n_ranks, granularity=g)
-    slice_lens = tuple(ensure_executable(plan.slices, schedule="contiguous", n_ranks=n_ranks,
+    plan: DPResult = optimal_slicing(cm, seq, n_ranks, granularity=g,
+                                     virtual_stages=virtual_stages)
+    slice_lens = tuple(ensure_executable(plan.slices, schedule=schedule, n_ranks=n_ranks,
                                          n_microbatches=microbatches, granularity=g))
-    info = plan_schedule_info(slice_lens, schedule="contiguous", n_ranks=n_ranks,
-                              n_microbatches=microbatches)
+    info = plan_schedule_info(slice_lens, schedule=schedule, n_ranks=n_ranks,
+                              virtual_stages=virtual_stages, n_microbatches=microbatches)
     print(f"[dp-plan] slices {list(slice_lens)} "
           f"(predicted {plan.latency*1e3:.1f} ms/iter; "
           + " ".join(f"{k}={v}" for k, v in info.items()) + ")")
@@ -97,7 +95,7 @@ def plan_slices(cfg, seq: int, n_ranks: int, hw: HardwareSpec, *, microbatches: 
     D = microbatches
     best = None
     for name, spec in REGISTRY.items():
-        V = spec.min_virtual
+        V = max(virtual_stages, spec.min_virtual) if spec.max_virtual is None else spec.min_virtual
         sl = ensure_executable(plan.slices, schedule=name, n_ranks=n_ranks,
                                n_microbatches=D, granularity=g)
         sch = SlicingScheme.from_dp(seq, D, [(1, list(sl))] * D)
@@ -123,10 +121,18 @@ def plan_slices(cfg, seq: int, n_ranks: int, hw: HardwareSpec, *, microbatches: 
     return slice_lens, plan
 
 
+def _promoted_schedule(args) -> str:
+    """``contiguous`` with ``--virtual-stages > 1`` is ``interleaved``."""
+    if args.schedule == "contiguous" and args.virtual_stages > 1:
+        return "interleaved"
+    return args.schedule
+
+
 def build_value_and_grad(model, args):
     """``(params, batch) -> (loss, grads)`` for the selected mode."""
     if args.mode == "gspmd":
         return value_and_grad(model.loss)
+    schedule = _promoted_schedule(args)
     slice_lens = None
     if args.dp_plan:
         # on the card: the card's spec, fitted at the executor's batch per
@@ -136,11 +142,12 @@ def build_value_and_grad(model, args):
         slice_lens, _ = plan_slices(
             model.cfg, args.seq, PIPE_RANKS, H100 if on_card else TPU_V5E,
             microbatches=args.microbatches,
-            batch=args.batch // args.microbatches if on_card else 1)
+            batch=args.batch // args.microbatches if on_card else 1,
+            schedule=schedule, virtual_stages=args.virtual_stages)
     tcfg = TeraPipeConfig(
         n_token_slices=args.token_slices if args.mode == "terapipe" else 1,
         slice_lens=slice_lens, n_microbatches=args.microbatches,
-        schedule=args.schedule, virtual_stages=args.virtual_stages)
+        schedule=schedule, virtual_stages=args.virtual_stages)
     return make_terapipe_value_and_grad(model, tcfg, args.seq, args.batch, PIPE_RANKS)
 
 
@@ -176,9 +183,11 @@ def main(argv=None, history: Optional[list] = None) -> float:
                     help="plan slice lengths with the paper's DP (Alg. 1); --mode terapipe")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--schedule", default="contiguous", choices=list(schedule_names()),
-                    help="pipeline schedule (core/schedules registry; only contiguous "
-                    "is ported to the executor): " + schedule_help())
-    ap.add_argument("--virtual-stages", type=int, default=1, help="not yet ported")
+                    help="pipeline schedule of --mode terapipe/gpipe (core/schedules "
+                    "registry): " + schedule_help())
+    ap.add_argument("--virtual-stages", type=int, default=1,
+                    help="V: layer chunks per rank (interleaved schedules; V > 1 with "
+                    "contiguous means interleaved)")
     ap.add_argument("--use-kernel", action="store_true",
                     help="attention through the hand-written CUDA kernels")
     ap.add_argument("--unroll", action="store_true",
@@ -191,10 +200,8 @@ def main(argv=None, history: Optional[list] = None) -> float:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    sched_eff = ("interleaved" if args.schedule == "contiguous" and args.virtual_stages > 1
-                 else args.schedule)
     try:
-        check_virtual_stages(sched_eff, args.virtual_stages)
+        check_virtual_stages(_promoted_schedule(args), args.virtual_stages)
     except ValueError as e:
         ap.error(str(e))
     if args.dp_plan and args.mode != "terapipe":

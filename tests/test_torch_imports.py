@@ -142,13 +142,10 @@ def test_cpu_tensors_take_the_plain_path_without_launches():
 
 def test_forward_only_and_unported_surfaces_raise():
     """What is still to port raises NotImplementedError and names where it
-    is ported: the other schedules and the checkpoint loop of launch.train,
-    the non-dense families."""
+    is ported: the checkpoint loop of launch.train, the non-dense
+    families."""
     smoke = ["--arch", "gpt3-1b", "--smoke", "--device", "cpu", "--steps", "1"]
-    for extra, what in ((["--mode", "terapipe", "--schedule", "1f1b"], "item 6"),
-                        (["--schedule", "zb-h1"], "item 6"),
-                        (["--mode", "terapipe", "--virtual-stages", "2"], "item 6"),
-                        (["--checkpoint-dir", "ckpt"], "item 5"),
+    for extra, what in ((["--checkpoint-dir", "ckpt"], "item 5"),
                         (["--simulate-failure-at", "0"], "item 5")):
         with pytest.raises(NotImplementedError, match=what):
             train_launch.main(smoke + extra)

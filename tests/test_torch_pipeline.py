@@ -9,8 +9,9 @@ to, on one device and without a subprocess: K = 2, 3 (uneven stages, one of
 them all pad rows) and 4, uniform and non-uniform slices, D = 1 and 2, and
 GPipe (D = 2, M = 1).  Caches are float32 there, as in the JAX executor's
 tests.  Also: idle ticks leave the caches bit-identical and the caches
-equal the JAX prefill of the last microbatch, the unported schedules
-raise, and ``launch.train.main`` drives the pipelined modes and the DP
+equal the JAX prefill of the last microbatch, the other four schedules
+run there too (``tests/test_torch_pipeline_schedules.py`` holds them in
+full), and ``launch.train.main`` drives the pipelined modes and the DP
 plan on the CPU.
 """
 import argparse
@@ -33,8 +34,8 @@ from repro.optim import adamw as jax_adamw
 from repro_torch.configs import get_config
 from repro_torch.core.cost_model import H100, TPU_V5E
 from repro_torch.core.pipeline import (LocalRing, TeraPipeConfig, make_gpipe_loss,
-                                       make_terapipe_caches_fn, make_terapipe_loss,
-                                       make_terapipe_value_and_grad, value_and_grad)
+                                       make_terapipe_caches_fn, make_terapipe_value_and_grad,
+                                       value_and_grad)
 from repro_torch.launch import train as train_launch
 from repro_torch.models import Model, build_model
 from repro_torch.tree import tree_leaves, tree_map
@@ -160,15 +161,21 @@ def test_local_ring_shifts_to_the_successor():
 
 @pytest.mark.parametrize("schedule,V", [("1f1b", 1), ("interleaved", 2),
                                         ("interleaved-1f1b", 2), ("zb-h1", 1)])
-def test_unported_schedules_raise(schedule, V, jax_params):
-    model, _ = _port(jax_params)
-    tcfg = TeraPipeConfig(n_microbatches=2, schedule=schedule, virtual_stages=V)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make_terapipe_loss(model, tcfg, S, B, 2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        train_launch.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "1",
-                           "--mode", "terapipe", "--schedule", schedule,
-                           "--virtual-stages", str(V)])
+def test_unported_schedules_raise(schedule, V, jax_params, jax_reference):
+    """The four schedules beyond contiguous, which the executor and the
+    trainer once refused, run at K 2 (D 2, non-uniform slices) and match
+    JAX's non-pipelined step; the trainer takes their flags (one step)."""
+    model, params = _port(jax_params)
+    tcfg = TeraPipeConfig(n_microbatches=2, cache_dtype=torch.float32, schedule=schedule,
+                          virtual_stages=V, **SLICINGS["dp"])
+    loss, grads = make_terapipe_value_and_grad(model, tcfg, S, B, 2)(params, _torch_batch())
+    _check(loss, grads, jax_reference[False])
+    history = []
+    train_launch.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "1",
+                       "--mode", "terapipe", "--schedule", schedule, "--virtual-stages", str(V),
+                       "--microbatches", "2", "--batch", "2", "--seq", "16", "--log-every", "1"],
+                      history=history)
+    assert len(history) == 1 and abs(history[0]["loss"] - math.log(256)) < 1
 
 
 STEPS, LR, WARMUP = 3, 1e-2, 2
