@@ -64,12 +64,32 @@ result line):
                dK/dV on one saved forward) at a few (l, ctx), measured
                twice: every bwd/fwd ratio in [2, 6], and the l 256, ctx 0
                backward entry within 25% across the two;
-  6. times   — each kernel at a main-path shape (CUDA events, median of 30
+  6. restart — gpt3-1b at full width (full depth when the disk holds two
+               checkpoints of its 20.3 GiB state, else fewer layers, said in
+               the line), batch 4 x seq 2048, --use-kernel, through
+               repro_torch.launch.train.main: (a) 6 uninterrupted gspmd steps,
+               twice (does the run repeat bit for bit?); (b) the same with
+               --checkpoint-dir, --checkpoint-every 3 and
+               --simulate-failure-at 4: restores step 3 and ends bit-equal
+               to (a), every leaf of params, m, v and step compared on the
+               host (within 4x the run-to-run spread if (a) does not
+               repeat); (c) --resume from (b)'s step-3 checkpoint under
+               --mode terapipe --schedule 1f1b, M 8, steps 4-6 within 1e-3
+               relative of (a)'s losses; launches exact per step run, the
+               seconds and GB/s of each save and restore; the checkpoints
+               are deleted at the end.  Then the audit (analysis.audit): one
+               full-width pipelined step, M 8, kernels, under contiguous as
+               trained, contiguous with remat off at batch 1 (so that the
+               blocks' saved tensors reach the hooks) and 1f1b:
+               comm.ring-match and buffer.score-matrix clean, the saved
+               bytes and the dtype census printed; one [checkpoint] and one
+               [audit] line with the card's name and power limit;
+  7. times   — each kernel at a main-path shape (CUDA events, median of 30
                after warm-up, L2 flushed before each launch) beside its
                bound, its plain version and one PyTorch library call; the
                forward also at the training shape (train_ms, train_bound_ms,
                train_library_ms);
-  7. profiles — one gspmd step and two pipelined steps (M 8, contiguous and
+  8. profiles — one gspmd step and two pipelined steps (M 8, contiguous and
                1f1b) under
                torch.profiler: the 15 device kernels that took the most
                time and the repo's own kernels wherever they rank, with
@@ -86,6 +106,8 @@ import dataclasses
 import json
 import math
 import re
+import resource
+import shutil
 import statistics
 import subprocess
 import sys
@@ -99,6 +121,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.analysis import audit, errors  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.cost_model import (H100, AnalyticCostModel,  # noqa: E402
                                          fit_efficiency_and_floor,
@@ -123,7 +146,7 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim.adamw import adamw, cosine_schedule  # noqa: E402
 from repro_torch.serve import DecodeEngine, EngineConfig  # noqa: E402
 from repro_torch.timing import PEAK_BF16_FLOPS, bound_ms, time_ms  # noqa: E402
-from repro_torch.tree import tree_items, tree_leaves, tree_map  # noqa: E402
+from repro_torch.tree import jax_items, tree_items, tree_leaves, tree_map  # noqa: E402
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # f32 with logits scaled x30: rounding of |logits| ~ 100 shows in the
@@ -228,10 +251,13 @@ def phase_build() -> None:
         for dt in ("bf16", "f32"):
             fn = f"{kern}<{dt},{MAIN_PATH_HD}>"
             log(f"[build] {fn} (serving's decode, chunk {CHUNK} keys): {report[fn]}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    log(f"[card] {smi.stdout.strip()}")
+    log(f"[card] {_card()}")
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
 
 
 # ------------------------------------------------------------- 2. kernels
@@ -665,6 +691,7 @@ def _train_run(cfg, argv, label, per_step, steps: int = TRAIN_STEPS) -> tuple:
     log(f"[{label}] python -m repro_torch.launch.train {' '.join(argv)}")
     for fn in COUNTERS.values():
         fn.launches = 0
+    base_gb = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     history = []
     final = train_launch.main(argv, history=history)
@@ -684,10 +711,12 @@ def _train_run(cfg, argv, label, per_step, steps: int = TRAIN_STEPS) -> tuple:
         raise AssertionError(f"{label}: launches {counts} != {want}")
     step_ms = statistics.median(r["ms_per_step"] for r in history[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    metrics = {"step_ms": step_ms, "tok_s": tokens / step_ms * 1e3, "peak_gib": peak_gb}
+    metrics = {"step_ms": step_ms, "tok_s": tokens / step_ms * 1e3, "peak_gib": peak_gb,
+               "base_gib": base_gb}
     log(f"[{label}] gpt3-1b FULL, {steps} steps of batch {TRAIN_BATCH} x seq "
         f"{TRAIN_SEQ}: losses {losses}; step {step_ms:.1f} ms (median of steps "
-        f"2-{steps}), {metrics['tok_s']:.0f} tok/s, peak allocated {peak_gb:.2f} GiB; "
+        f"2-{steps}), {metrics['tok_s']:.0f} tok/s, peak allocated {peak_gb:.2f} GiB "
+        f"({base_gb:.2f} allocated before the run); "
         f"launches {counts}")
     return counts, metrics
 
@@ -766,11 +795,22 @@ def _profile_step(cfg, make_vg, label: str) -> None:
                for i in range(2)]
     train_launch.train_step(vg_fn, opt, state, batches[0])
     torch.cuda.synchronize()
+    # what besides the step can take the host's time: the allocator's
+    # retries (a sync and a cache flush each), page faults, preemption
+    mem0 = torch.cuda.memory_stats()
+    use0 = resource.getrusage(resource.RUSAGE_SELF)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         train_launch.train_step(vg_fn, opt, state, batches[1])
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
+    use1 = resource.getrusage(resource.RUSAGE_SELF)
+    retries = torch.cuda.memory_stats()["num_alloc_retries"] - mem0["num_alloc_retries"]
+    log(f"[profile] {label}: before the step {mem0['allocated_bytes.all.current'] / 2**30:.2f} "
+        f"GiB allocated, {mem0['reserved_bytes.all.current'] / 2**30:.2f} GiB reserved; during "
+        f"it {retries} allocator retries, {use1.ru_minflt - use0.ru_minflt} minor and "
+        f"{use1.ru_majflt - use0.ru_majflt} major page faults, "
+        f"{use1.ru_nivcsw - use0.ru_nivcsw} involuntary context switches")
     per_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -979,9 +1019,10 @@ def _cost_tables(cfg) -> None:
         raise AssertionError("cost table: the l 256, ctx 0 backward entry does not repeat")
 
 
-def phase_pipeline() -> dict:
+def phase_pipeline() -> tuple:
     """gpt3-1b at full width through the token-slice pipeline on PIPE_RANKS
-    virtual ranks.  Returns the launches of its main runs."""
+    virtual ranks.  Returns the launches of its main runs and, per
+    schedule, the metrics of its 3-step run."""
     cfg = _gpt3_1b()
     torch.cuda.empty_cache()
     fit = _stage_sweep(cfg)
@@ -1029,10 +1070,248 @@ def phase_pipeline() -> dict:
     torch.cuda.empty_cache()
     _cost_tables(cfg)
     log(f"[pipeline] summary: H100 fit efficiency {fit[0]:.4f}, occupancy_floor {fit[1]}")
-    return {f"terapipe {s}": c for s, c in counts.items()}
+    return {f"terapipe {s}": c for s, c in counts.items()}, runs
 
 
-# --------------------------------------------------------------- 6. times
+# ------------------------------------------------- 6. restart and audit
+RESTART_STEPS, RESTART_EVERY, RESTART_FAULT = 6, 3, 4
+RESTART_DIR = ROOT / "build" / "restart_ckpt"
+# two checkpoints of the full-width state (2 x 20.4 GiB) exist at once: the
+# newest while the next one is written, and (b)'s step 3 beside its step 6
+RESTART_DISK_FACTOR = 2.2
+RESUME_SCHEDULE = "1f1b"
+# (b) held to (a) within the run-to-run spread, if (a) does not repeat
+SPREAD_FACTOR = 4.0
+PEAK_BOUND_GIB = 0.1
+AUDIT_RUNS = (("contiguous", TRAIN_BATCH, True), ("contiguous", 1, False),
+              (RESUME_SCHEDULE, TRAIN_BATCH, True))
+
+
+def _state_bytes(cfg) -> int:
+    """Bytes of params + AdamW m + v in f32 of a dense model (Hq = Hkv)."""
+    d = cfg.d_model
+    layer = 4 * d * cfg.n_heads * cfg.hd + 3 * d * cfg.d_ff + 2 * d
+    return 12 * (2 * cfg.vocab_size * d + d + cfg.n_layers * layer)
+
+
+def _host_state(state) -> list:
+    """(path, host copy) of every leaf of a checkpoint tree, in the
+    checkpoint's order."""
+    return [(path, torch.as_tensor(leaf).detach().cpu()) for path, leaf in jax_items(state)]
+
+
+def _differences(ref: list, state) -> list:
+    """(path, max abs difference) of each leaf of ``state`` that is not
+    bit-equal to ``ref``'s, compared on the host leaf by leaf."""
+    items = jax_items(state)
+    if len(items) != len(ref):
+        raise AssertionError(f"restart: {len(items)} leaves, want {len(ref)}")
+    out = []
+    for (path, want), (_, leaf) in zip(ref, items):
+        got = torch.as_tensor(leaf).detach().cpu()
+        if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+            out.append((path, (got.double() - want.double()).abs().max().item()))
+    return out
+
+
+def _restart_run(cfg, argv, label, per_step, step_runs: int) -> tuple:
+    """``launch.train.main(argv)`` with every launch counter set to 0 just
+    before and read just after: finite losses within 1 of ln(vocab),
+    launches equal to ``per_step`` times ``step_runs`` (the train_step
+    calls, a replayed step counted again).  Returns (history, out, counts,
+    peak GiB above the memory allocated before the run, seconds)."""
+    log(f"[restart] {label}: python -m repro_torch.launch.train {' '.join(argv)}")
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    base = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    history, out = [], {}
+    t0 = time.time()
+    train_launch.main(argv, history=history, out=out)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    counts = {name: fn.launches for name, fn in COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30 - base
+    ln_v = math.log(cfg.vocab_size)
+    if not all(abs(r["loss"] - ln_v) <= 1.0 for r in history):
+        raise AssertionError(f"{label}: losses {[r['loss'] for r in history]} not within 1 "
+                             f"of ln V = {ln_v:.4f}")
+    want = {k: per_step.get(k, 0) * step_runs for k in COUNTERS}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts} != {want}")
+    for r in out["checkpoints"]:
+        log(f"[restart] {label}: {r['op']} step {r['step']}: {r['bytes'] / 2**30:.3f} GiB in "
+            f"{r['seconds']:.2f} s ({r['bytes'] / r['seconds'] / 1e9:.2f} GB/s)")
+    log(f"[restart] {label}: losses {[(r['step'], r['loss']) for r in history]}; "
+        f"{seconds:.1f} s, peak allocated {peak:.2f} GiB above the {base:.2f} GiB allocated "
+        f"before the run, launches {counts}")
+    return history, out, counts, peak, seconds
+
+
+def _restart(cfg_full, peaks: dict) -> dict:
+    """gpt3-1b (full width; full depth when the disk holds two checkpoints)
+    through launch.train.main --use-kernel at batch 4 x seq 2048:
+    (a) RESTART_STEPS uninterrupted gspmd steps, twice; (b) the same run
+    with --checkpoint-dir, --checkpoint-every RESTART_EVERY and
+    --simulate-failure-at RESTART_FAULT, bit-equal to (a) (or, if (a) does
+    not repeat, within SPREAD_FACTOR x its run-to-run spread); (c) resumed
+    from (b)'s step-3 checkpoint under --mode terapipe --schedule 1f1b, M 8,
+    losses within LOSS_REL_BOUND of (a)'s.  At full depth each run's peak
+    allocated memory above what was allocated before it stays within
+    PEAK_BOUND_GIB of its mode's in phases 4 and 5 (``peaks``: "gspmd",
+    RESUME_SCHEDULE): no checkpoint or fault path holds a second copy of
+    the state.  Returns the launches of the runs."""
+    RESTART_DIR.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(RESTART_DIR).free
+    depth = cfg_full.n_layers
+    while depth > 1 and RESTART_DISK_FACTOR * _state_bytes(
+            cfg_full.replace(n_layers=depth)) > free:
+        depth -= 1
+    cfg = cfg_full.replace(n_layers=depth)
+    state_gib = _state_bytes(cfg) / 2**30
+    log(f"[restart] disk free {free:,} bytes ({free / 2**30:.1f} GiB) under {RESTART_DIR}; "
+        f"state {state_gib:.2f} GiB at {depth} of {cfg_full.n_layers} layers")
+    get_config = train_launch.get_config
+    if depth < cfg_full.n_layers:
+        train_launch.get_config = lambda arch, smoke: get_config(arch, smoke).replace(
+            n_layers=depth)
+    ckpt_dir = RESTART_DIR / "run"
+    steps = ["--steps", str(RESTART_STEPS)]
+    gspmd = _launches_per_step(cfg, 1)
+    try:
+        hist_a, out_a, counts_a, peak_a, sec_a = _restart_run(
+            cfg, TRAIN_ARGV + steps, "(a)", gspmd, RESTART_STEPS)
+        ref = _host_state(out_a.pop("state"))
+        _, out_a2, counts_a2, _, _ = _restart_run(cfg, TRAIN_ARGV + steps, "(a) again", gspmd,
+                                                  RESTART_STEPS)
+        spread = _differences(ref, out_a2.pop("state"))
+        # the fault after step RESTART_FAULT replays RESTART_FAULT - RESTART_EVERY + 1 steps
+        replayed = RESTART_FAULT - RESTART_EVERY + 1
+        hist_b, out_b, counts_b, peak_b, sec_b = _restart_run(
+            cfg, TRAIN_ARGV + steps + ["--checkpoint-dir", str(ckpt_dir), "--checkpoint-every",
+                                       str(RESTART_EVERY), "--simulate-failure-at",
+                                       str(RESTART_FAULT)],
+            "(b)", gspmd, RESTART_STEPS + replayed)
+        diff_b = _differences(ref, out_b.pop("state"))
+        ops = [(r["op"], r["step"]) for r in out_b["checkpoints"]]
+        want_ops = [("save", RESTART_EVERY), ("restore", RESTART_EVERY),
+                    ("save", 2 * RESTART_EVERY)]
+        if ops != want_ops:
+            raise AssertionError(f"(b): checkpoint operations {ops} != {want_ops}")
+        worst = lambda d: max((x for _, x in d), default=0.0)
+        if spread:
+            log(f"[restart] (a) does not repeat: {len(spread)} of {len(ref)} leaves differ "
+                f"between two uninterrupted runs, worst {worst(spread):.3g} "
+                f"({max(spread, key=lambda x: x[1])[0]})")
+            if worst(diff_b) > SPREAD_FACTOR * worst(spread):
+                raise AssertionError(f"(b) is off (a) by {worst(diff_b):.3g}, beyond "
+                                     f"{SPREAD_FACTOR} x the run-to-run spread")
+        elif diff_b:
+            raise AssertionError(f"(b) is not bit-equal to (a): {diff_b[:8]}")
+        # (c): the step-3 checkpoint of (b) is the latest once its step 6 goes
+        shutil.rmtree(ckpt_dir / f"step_{2 * RESTART_EVERY:08d}")
+        hist_c, out_c, counts_c, peak_c, sec_c = _restart_run(
+            cfg, TRAIN_ARGV + steps + ["--mode", "terapipe", "--token-slices", str(PIPE_SLICES),
+                                       "--schedule", RESUME_SCHEDULE, "--checkpoint-dir",
+                                       str(ckpt_dir), "--checkpoint-every",
+                                       str(RESTART_EVERY), "--resume"],
+            f"(c) {RESUME_SCHEDULE}", _launches_per_step(cfg, PIPE_SLICES, RESUME_SCHEDULE),
+            RESTART_STEPS - RESTART_EVERY)
+        want_c = {r["step"]: r["loss"] for r in hist_a}
+        rel_c = [abs(r["loss"] - want_c[r["step"]]) / abs(want_c[r["step"]]) for r in hist_c]
+        if [r["step"] for r in hist_c] != list(range(RESTART_EVERY + 1, RESTART_STEPS + 1)) \
+                or max(rel_c) > LOSS_REL_BOUND:
+            raise AssertionError(f"(c): losses {hist_c} vs (a) {hist_a}: relative {rel_c}")
+        out_c.pop("state")
+        if depth == cfg_full.n_layers:
+            for label, peak, mode in (("(a)", peak_a, "gspmd"), ("(b)", peak_b, "gspmd"),
+                                      ("(c)", peak_c, RESUME_SCHEDULE)):
+                if abs(peak - peaks[mode]) > PEAK_BOUND_GIB:
+                    raise AssertionError(f"{label}: peak {peak:.2f} GiB above its baseline, "
+                                         f"{mode}'s run without checkpoints {peaks[mode]:.2f}")
+    finally:
+        train_launch.get_config = get_config
+        shutil.rmtree(RESTART_DIR, ignore_errors=True)
+    recs = out_b["checkpoints"] + out_c["checkpoints"]
+    rate = lambda op: ", ".join(f"{r['seconds']:.2f} s {r['bytes'] / r['seconds'] / 1e9:.2f} GB/s"
+                                for r in recs if r["op"] == op)
+    log(f"[checkpoint] {_card()}; gpt3-1b FULL width, {depth} of {cfg_full.n_layers} layers, "
+        f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, --use-kernel: checkpoint "
+        f"{recs[0]['bytes']:,} bytes ({recs[0]['bytes'] / 2**30:.3f} GiB, params + m + v f32 + "
+        f"step), disk free before {free:,} bytes; saves {rate('save')}; restores "
+        f"{rate('restore')}; (a) repeats bit for bit: {not spread} "
+        f"({len(spread)} leaves differ, worst {worst(spread):.3g}); (b) fault after step "
+        f"{RESTART_FAULT}, restored step {RESTART_EVERY}, bit-equal to (a): {not diff_b} "
+        f"({len(diff_b)} of {len(ref)} leaves differ, worst {worst(diff_b):.3g}); (c) "
+        f"{RESUME_SCHEDULE} M {PIPE_SLICES} resumed at step {RESTART_EVERY}: loss relative to "
+        f"(a) {', '.join(f'{x:.3g}' for x in rel_c)} (bound {LOSS_REL_BOUND}); peaks (a) "
+        f"{peak_a:.2f}, (b) {peak_b:.2f}, (c) {peak_c:.2f} GiB above their baselines (phases 4 "
+        f"and 5: gspmd {peaks['gspmd']:.2f}, {RESUME_SCHEDULE} {peaks[RESUME_SCHEDULE]:.2f}); "
+        f"run s (a) {sec_a:.1f}, "
+        f"(b) {sec_b:.1f}, (c) {sec_c:.1f}")
+    return {"restart (a)": counts_a, "restart (a) again": counts_a2, "restart (b)": counts_b,
+            f"restart (c) {RESUME_SCHEDULE}": counts_c}
+
+
+def _audit(cfg) -> None:
+    """One full-width pipelined step (M 8, kernels) under each of
+    AUDIT_RUNS through analysis.audit.audit_step: comm.ring-match,
+    buffer.score-matrix and buffer.repeated-kv clean; the saved bytes and
+    the dtype census printed.  contiguous runs twice: as trained (remat on,
+    batch 4: the census of PERF.md's profiled step), and with remat off at
+    batch 1, so that the blocks' saved tensors reach the hooks (inside a
+    checkpoint region they do not)."""
+    lines = []
+    for schedule, batch, remat in AUDIT_RUNS:
+        model = build_model(cfg.replace(use_kernel=True, remat=remat))
+        params = tree_map(lambda p: p.requires_grad_(True), model.init(seed=0))
+        vg = make_terapipe_value_and_grad(model, TeraPipeConfig(
+            n_token_slices=PIPE_SLICES, schedule=schedule), TRAIN_SEQ, batch, PIPE_RANKS)
+        toks = DataPipeline(SyntheticSource(cfg.vocab_size, 0), batch, TRAIN_SEQ).batch_at(0)
+        data = {k: torch.from_numpy(a).cuda() for k, a in toks.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        rec = audit.audit_step(vg, params, data, kernel_rules=True)
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        label = f"{schedule} batch {batch} remat {'on' if remat else 'off'}"
+        for f in rec["findings"]:
+            log(f"[audit-step] {label}: {f}")
+        errs = errors(rec["findings"])
+        if errs:
+            raise AssertionError(f"audit {label}: {[str(f) for f in errs]}")
+        ran = {f.rule for f in rec["findings"]}
+        casts = rec["casts"]
+        lines.append(f"{label}: ring and score clean, repeated-kv "
+                     f"{'clean' if 'buffer.repeated-kv' in ran else 'vacuous (Hq = Hkv)'}; "
+                     f"saved peak {rec['saved_peak_bytes'] / 2**30:.3f} GiB over "
+                     f"{rec['saved_tensors']} saves; casts f32->bf16 "
+                     f"{casts.get('float32->bfloat16', 0)}, bf16->f32 "
+                     f"{casts.get('bfloat16->float32', 0)}; loss {rec['loss']:.4f}; {sec:.1f} s, "
+                     f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del model, params, vg, data, rec
+        torch.cuda.empty_cache()
+    log(f"[audit] {_card()}; gpt3-1b FULL, seq {TRAIN_SEQ}, M {PIPE_SLICES}, K {PIPE_RANKS}, "
+        f"kernels, one step each through analysis.audit (PERF.md §5: 5,007 f32->bf16 casts "
+        f"launched by the profiled contiguous step): " + "; ".join(lines))
+
+
+def phase_restart(peaks: dict) -> dict:
+    """The restart of gpt3-1b (checkpoint manager, supervisor) and the
+    audit of the pipelined step.  ``peaks``: the peak allocated GiB above
+    the run's baseline of phase 4's gspmd run and phase 5's RESUME_SCHEDULE
+    run.  Returns the
+    launches of the restart's main runs."""
+    cfg = _gpt3_1b()
+    torch.cuda.empty_cache()
+    counts = _restart(cfg, peaks)
+    torch.cuda.empty_cache()
+    _audit(cfg)
+    return counts
+
+
+# --------------------------------------------------------------- 7. times
 def phase_times(errs: dict, launches: dict) -> list:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1130,7 +1409,7 @@ def phase_times(errs: dict, launches: dict) -> list:
     return rows
 
 
-# ------------------------------------------------------------ 7. profiles
+# ------------------------------------------------------------ 8. profiles
 def phase_profiles() -> None:
     """One gspmd step and two pipelined steps (M = PIPE_SLICES, contiguous
     and 1f1b) under
@@ -1156,16 +1435,30 @@ def main() -> int:
         return 1
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    t0 = time.time()
+    done = lambda phase: log(f"[time] {phase} done at {time.time() - t0:.1f} s")
     phase_build()
+    done("build")
     errs = phase_kernels()
     errs.update(phase_kernels_bwd())
+    done("kernels")
     paths = {"serve": phase_serve()}
-    paths["train"], _ = phase_train()
-    paths.update(phase_pipeline())
+    done("serve")
+    paths["train"], train = phase_train()
+    done("train")
+    pipe_counts, pipe_runs = phase_pipeline()
+    paths.update(pipe_counts)
+    done("pipeline")
+    above = lambda m: m["peak_gib"] - m["base_gib"]
+    paths.update(phase_restart({"gspmd": above(train),
+                                RESUME_SCHEDULE: above(pipe_runs[RESUME_SCHEDULE])}))
+    done("restart")
     launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in COUNTERS}
     log(f"[launches] main paths: {paths}")
     rows = phase_times(errs, launches)
+    done("times")
     phase_profiles()
+    done("profiles")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -542,11 +542,14 @@ def make_terapipe_value_and_grad(model: Model, tcfg: TeraPipeConfig, seq_len: in
     (reference ``pipeline.py:968-982``): autograd over the tick loop for
     the forward-only schedules, the explicit backward units otherwise.  An
     explicit schedule's function keeps, as ``residual_peak``, the most
-    saved units one rank held in its last call."""
+    saved units one rank held in its last call.  Every function carries its
+    ``plan`` (slices, schedule assignment, tick table), which the audits
+    (``repro_torch.analysis``) hold the run to."""
     p = _Plan(model, tcfg, seq_len, global_batch, n_ranks)
-    if p.assign.has_backward:
-        return _make_explicit_value_and_grad(p)
-    return value_and_grad(_make_loss_from_plan(p))
+    vg = (_make_explicit_value_and_grad(p) if p.assign.has_backward
+          else value_and_grad(_make_loss_from_plan(p)))
+    vg.plan = p
+    return vg
 
 
 def make_gpipe_loss(model: Model, *, n_microbatches: int, seq_len: int,

@@ -21,18 +21,36 @@ Modes:
   slices that Algorithm 1 plans (``--dp-plan``), D = ``--microbatches``,
   under ``--schedule`` with ``--virtual-stages`` chunks per rank;
 * ``gpipe``: the same executor with D microbatches and M = 1.
-The pipelined modes never fall back to the gspmd step.  The
-checkpoint/supervisor loop is not ported yet: its flags raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
+The pipelined modes never fall back to the gspmd step.
+
+Fault tolerance, the reference's supervisor (``repro/launch/train.py``,
+PR 3's contract), in every mode and schedule:
+* ``--checkpoint-dir``: a checkpoint (``checkpoint/manager.py``, the
+  reference's format) every ``--checkpoint-every`` steps and at the end;
+  ``--resume`` restores the latest one first;
+* ``--simulate-failure-at k`` raises once, after step k's ``train_step``
+  has returned; that step's result is thrown away;
+* on a fault the supervisor restores the latest checkpoint and continues.
+  With a checkpoint dir but nothing saved yet it raises ("cannot retry");
+  without a checkpoint dir it replays the step from the pre-step
+  ``params``/``opt_state`` references.  ``train_step`` rebinds the state,
+  so those references are the torch form of the reference's "donation off":
+  they are held only in the one case that retries (no checkpoint dir and a
+  fault to inject), since they keep a second copy of the moments alive
+  across the update.  A fault that repeats at the same step after a
+  restore is raised: replaying cannot cure it.
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import time
+import traceback
 from typing import Optional
 
 import torch
 
+from repro_torch.checkpoint import CheckpointManager, meta_target
 from repro_torch.configs import get_config
 from repro_torch.core.cost_model import H100, TPU_V5E, AnalyticCostModel, HardwareSpec
 from repro_torch.core.dp import DPResult, ensure_executable, optimal_slicing, plan_schedule_info
@@ -50,21 +68,6 @@ from repro_torch.tree import tree_leaves, tree_map
 #: pipeline ranks: the reference's ``pipe = min(4, n_devices)`` on any host
 #: with four devices or more; on one card the ranks are virtual
 PIPE_RANKS = 4
-
-# flag -> (value that means "not asked for", ROADMAP Queue 1 item that ports it)
-_UNPORTED = {
-    "checkpoint_dir": (None, "item 5 (checkpoint/manager.py and the supervisor)"),
-    "resume": (False, "item 5 (checkpoint/manager.py and the supervisor)"),
-    "simulate_failure_at": (-1, "item 5 (checkpoint/manager.py and the supervisor)"),
-}
-
-
-def _check_ported(args) -> None:
-    for name, (default, item) in _UNPORTED.items():
-        if getattr(args, name) != default:
-            flag = "--" + name.replace("_", "-")
-            raise NotImplementedError(f"{flag}: not yet ported (ROADMAP Queue 1 {item})")
-
 
 def plan_slices(cfg, seq: int, n_ranks: int, hw: HardwareSpec, *, microbatches: int = 1,
                 batch: int = 1, schedule: str = "contiguous", virtual_stages: int = 1):
@@ -165,10 +168,14 @@ def train_step(vg_fn, opt, state: dict, batch) -> torch.Tensor:
     return loss
 
 
-def main(argv=None, history: Optional[list] = None) -> float:
+def main(argv=None, history: Optional[list] = None, out: Optional[dict] = None) -> float:
     """Runs the training loop and returns the final loss.  If ``history``
     is a list, each logged step appends ``{"step", "loss", "tok_s",
-    "ms_per_step"}`` to it, the numbers its printed line shows."""
+    "ms_per_step"}`` to it, the numbers its printed line shows.  If ``out``
+    is a dict, it receives the final ``"state"`` (``{"params", "opt",
+    "step"}``, a checkpoint's tree) and the checkpoint manager's records
+    (``"checkpoints"``: one ``{"op", "step", "seconds", "bytes"}`` per save
+    and restore)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--smoke", action="store_true", help="reduced config (CPU-runnable)")
@@ -193,9 +200,12 @@ def main(argv=None, history: Optional[list] = None) -> float:
     ap.add_argument("--unroll", action="store_true",
                     help="accepted for the reference's CLI: the port's tick loop is eager "
                     "Python either way (rolled vs unrolled is a JAX tracing choice)")
-    ap.add_argument("--checkpoint-dir", default=None, help="not yet ported")
-    ap.add_argument("--resume", action="store_true", help="not yet ported")
-    ap.add_argument("--simulate-failure-at", type=int, default=-1, help="not yet ported")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--simulate-failure-at", type=int, default=-1,
+                    help="raise a fault once, after this step's train_step has returned; "
+                    "the step's result is thrown away (the fault-tolerance test)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -206,7 +216,6 @@ def main(argv=None, history: Optional[list] = None) -> float:
         ap.error(str(e))
     if args.dp_plan and args.mode != "terapipe":
         ap.error("--dp-plan plans token slices: it needs --mode terapipe")
-    _check_ported(args)
 
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.use_kernel:
@@ -219,11 +228,60 @@ def main(argv=None, history: Optional[list] = None) -> float:
     state["opt_state"] = opt.init(state["params"])
     data = DataPipeline(SyntheticSource(cfg.vocab_size, args.seed), args.batch, args.seq)
 
-    step, loss = 0, None
+    ckpt = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir else None
+    # a checkpoint's tree carries the reference's keys
+    tree = lambda step: {"params": state["params"], "opt": state["opt_state"], "step": step}
+    target = {"params": meta_target(state["params"]), "opt": meta_target(state["opt_state"]),
+              "step": 0}
+
+    def restore() -> int:
+        state.clear()                  # the live state goes first: no second copy
+        got = ckpt.restore(target=target, device=dev)
+        state["params"] = tree_map(lambda p: p.requires_grad_(True), got["params"])
+        state["opt_state"] = got["opt"]
+        _print_io(ckpt, f"restored step {int(got['step'])}")
+        return int(got["step"])
+
+    step = 0
+    if ckpt and args.resume and ckpt.latest_step() is not None:
+        step = restore()
+        print(f"[resume] restored step {step}")
+    rescue = ckpt is None and args.simulate_failure_at >= 0
+    failed_once, faulted = False, set()
+    loss = None
     t_last, tok_count, steps_since = time.time(), 0, 0
     while step < args.steps:
-        batch = {k: torch.from_numpy(a).to(dev) for k, a in data.batch_at(step).items()}
-        loss = train_step(vg_fn, opt, state, batch)
+        held = (state["params"], state["opt_state"]) if rescue else None
+        try:
+            batch = {k: torch.from_numpy(a).to(dev) for k, a in data.batch_at(step).items()}
+            step_loss = train_step(vg_fn, opt, state, batch)
+            if args.simulate_failure_at == step and not failed_once:
+                # after the step: the state already holds its result, as a
+                # fault during a real step leaves it half replaced
+                failed_once = True
+                raise RuntimeError("injected fault (simulate-failure-at)")
+        except Exception as e:  # noqa: BLE001 -- the supervisor: restore and continue
+            print(f"[fault] step {step}: {e}", file=sys.stderr)
+            if not str(e).startswith("injected fault"):
+                traceback.print_exc()
+            if step in faulted:
+                raise
+            faulted.add(step)
+            if ckpt and ckpt.latest_step() is not None:
+                step = restore()
+                print(f"[fault] restored checkpoint at step {step}")
+                continue
+            if ckpt:
+                print("[fault] no checkpoint saved yet and the faulted step has replaced "
+                      "the state; cannot retry", file=sys.stderr)
+                raise
+            if failed_once and held is not None:
+                state["params"], state["opt_state"] = held
+                print("[fault] no checkpoint dir; retrying step with rescue references")
+                continue
+            raise
+        del held
+        loss = step_loss
         tok_count += batch["tokens"].numel()
         steps_since += 1
         step += 1
@@ -237,10 +295,23 @@ def main(argv=None, history: Optional[list] = None) -> float:
             print(f"step {step:5d} loss {loss_f:.4f} {rec['tok_s']:,.0f} tok/s "
                   f"{rec['ms_per_step']:.1f} ms/step", flush=True)
             t_last, tok_count, steps_since = time.time(), 0, 0
+        if ckpt and (step % args.checkpoint_every == 0 or step == args.steps):
+            _print_io(ckpt, f"saved {ckpt.save(step, tree(step))}")
+    if out is not None:
+        out["state"] = tree(step)
+        out["checkpoints"] = list(ckpt.log) if ckpt else []
+    final = float(loss) if loss is not None else float("nan")
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))
-    print(f"done: {args.steps} steps, final loss {float(loss):.4f} "
+    print(f"done: {args.steps} steps, final loss {final:.4f} "
           f"({cfg.name}, {n_params:,} parameters, {dev}, mode {args.mode})")
-    return float(loss)
+    return final
+
+
+def _print_io(ckpt: CheckpointManager, what: str) -> None:
+    """The ``[ckpt]`` line of the manager's last save or restore."""
+    rec = ckpt.log[-1]
+    print(f"[ckpt] {what} ({rec['bytes'] / 2**30:.3f} GiB in {rec['seconds']:.2f} s, "
+          f"{rec['bytes'] / rec['seconds'] / 1e9:.2f} GB/s)", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,19 +1,23 @@
 """The PyTorch port stands alone and never falls back silently.
 
-* no module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports jax,
-  jaxlib or the JAX package, and none calls a finished attention op;
-* every entry point (serving, the training modes, the kernel cost table)
-  raises when no GPU is present and the caller did not ask for
-  ``device="cpu"``; the kernel wrappers refuse CPU tensors;
+* no module of ``src/repro_torch`` (nor ``chip_smoke.py`` or the port's
+  examples, ``examples/*_torch.py``) imports jax, jaxlib or the JAX
+  package, and none calls a finished attention op;
+* every entry point (serving, the training modes, the kernel cost table,
+  the audit command, the examples) raises when no GPU is present and the
+  caller did not ask for ``device="cpu"``; the kernel wrappers refuse CPU
+  tensors;
 * CPU tensors take the plain path and leave both launch counters at 0.
 """
 import ast
+import importlib.util
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis.__main__ import main as analysis_main
 from repro_torch.configs import get_config
 from repro_torch.core.cost_model import measure_kernel_cost_table
 from repro_torch.kernels import _build, ops
@@ -34,6 +38,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+PORT_EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
 FORBIDDEN_MODULES = {"jax", "jaxlib", "repro"}
 FORBIDDEN_CALLS = {"scaled_dot_product_attention", "flex_attention", "compile"}
 
@@ -47,9 +52,10 @@ def _imports(tree):
 
 
 def test_port_imports_nothing_of_jax():
-    assert len(PORT_FILES) > 20
+    assert len(PORT_FILES) > 20 and len(PORT_EXAMPLES) == 3
+    assert {"checkpoint", "analysis"} <= {p.parent.name for p in PORT_FILES}
     bad = []
-    for path in PORT_FILES + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]:
+    for path in PORT_FILES + PORT_EXAMPLES + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]:
         for mod in _imports(ast.parse(path.read_text())):
             if mod.split(".")[0] in FORBIDDEN_MODULES:
                 bad.append(f"{path.relative_to(ROOT)}: {mod}")
@@ -98,6 +104,14 @@ def test_entry_points_raise_without_gpu():
             train_launch.main(["--arch", "gpt3-1b", "--smoke", "--steps", "1", "--mode", mode])
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         measure_kernel_cost_table([(8, 0)])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        analysis_main([])
+    for path in PORT_EXAMPLES:
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            example.main([])
     with pytest.raises(RuntimeError, match="CUDA GPU"):
         _build.build_all()
     q, k, v = _cpu_tensors()
@@ -142,13 +156,7 @@ def test_cpu_tensors_take_the_plain_path_without_launches():
 
 def test_forward_only_and_unported_surfaces_raise():
     """What is still to port raises NotImplementedError and names where it
-    is ported: the checkpoint loop of launch.train, the non-dense
-    families."""
-    smoke = ["--arch", "gpt3-1b", "--smoke", "--device", "cpu", "--steps", "1"]
-    for extra, what in ((["--checkpoint-dir", "ckpt"], "item 5"),
-                        (["--simulate-failure-at", "0"], "item 5")):
-        with pytest.raises(NotImplementedError, match=what):
-            train_launch.main(smoke + extra)
+    is ported: the non-dense families, the "dots" remat policy."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
         get_config("mamba2-2.7b", smoke=True)
     cfg = get_config("gpt3-1b", smoke=True)
