@@ -24,8 +24,10 @@ result line):
                training step's own shape (B 4, l 2048, Hq = Hkv = 16, hd
                128); two launches of decode, dQ and dK/dV must agree bit for
                bit; the pipelined step's slices (B 4, l 256 at ctx 256 and
-               1792, Sk = ctx + l); the autograd Function against autograd
-               of the plain op;
+               1792, Sk = ctx + l); qwen3-moe's GQA ratio of 16 (Hq 64 /
+               Hkv 4: the forward at B 2, l 1024; dQ and dK/dV at B 1, l 256,
+               ctx 256; decode at L 2048 with per-row kv_len); the autograd
+               Function against autograd of the plain op;
                a bf16 row stride that is not a multiple of 8 is refused;
   3. serve   — qwen3-0.6b at full width (28 layers, random weights from a
                seeded generator, bf16, use_kernel=True) behind the
@@ -84,13 +86,33 @@ result line):
                comm.ring-match and buffer.score-matrix clean, the saved
                bytes and the dtype census printed; one [checkpoint] and one
                [audit] line with the card's name and power limit;
-  7. times   — each kernel at a main-path shape (CUDA events, median of 30
+  7. moe     — the MoE family at full width.  deepseek-moe-16b (d 2048,
+               16/16 heads, 64 experts top-6 of width 1408, 2 shared, dense0
+               of width 11264, vocab 102400) cut to 3 of 28 layers (dense0 +
+               2 MoE), random weights: the loss and gradients through the
+               kernels against the plain paths at batch 1 x seq 2048 (phase
+               4's bounds) under gspmd, contiguous and 1f1b (K 4, M 8; two
+               ranks hold pad rows only) and slices (384, 256, 128, 640,
+               640), with each bf16 path's routing drops and the (token,
+               choice) assignments it changes against the f32 path; two
+               gspmd calls at batch 4 x seq 2048 bit-equal; 5 gspmd steps and
+               3 pipelined steps (M 8, dense0 as the pre-group) under
+               contiguous and 1f1b through launch.train.main --use-kernel at
+               batch 4 x seq 2048, with ms/step, peak memory above the
+               baseline, exact launches and the routing drops per step.
+               Then qwen3-moe-235b-a22b (d 4096, 64/4 heads, 128 experts
+               top-8 of width 1536, vocab 151936) cut to 2 of 94 layers:
+               Model.prefill of 2 x 1024 tokens and 16 greedy decode_steps
+               through the kernels against the plain path (logits of every
+               row routed alike within 5e-2; greedy tokens);
+  8. times   — each kernel at a main-path shape (CUDA events, median of 30
                after warm-up, L2 flushed before each launch) beside its
                bound, its plain version and one PyTorch library call; the
                forward also at the training shape (train_ms, train_bound_ms,
                train_library_ms);
-  8. profiles — one gspmd step and two pipelined steps (M 8, contiguous and
-               1f1b) under
+  9. profiles — one gspmd step and two pipelined steps (M 8, contiguous and
+               1f1b) of gpt3-1b, and one gspmd step of deepseek-moe-16b
+               (3 layers), under
                torch.profiler: the 15 device kernels that took the most
                time and the repo's own kernels wherever they rank, with
                their share of the step, the device's busy share, and the
@@ -142,7 +164,8 @@ from repro_torch.kernels.terapipe_attention import (HEAD_DIMS,  # noqa: E402
 from repro_torch.kernels.terapipe_attention_bwd import (  # noqa: E402
     terapipe_attention_bwd, terapipe_attention_dkv, terapipe_attention_dq)
 from repro_torch.launch import train as train_launch  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import attention, build_model, lm, moe  # noqa: E402
+from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.optim.adamw import adamw, cosine_schedule  # noqa: E402
 from repro_torch.serve import DecodeEngine, EngineConfig  # noqa: E402
 from repro_torch.timing import PEAK_BF16_FLOPS, bound_ms, time_ms  # noqa: E402
@@ -305,10 +328,16 @@ def prefill_cases():
     return cases
 
 
+# GQA rep 16 (qwen3-moe-235b-a22b: Hq 64, Hkv 4, hd 128): its prefill of
+# 2 x 1024 tokens, and a training slice at ctx 256 for the backward
+MOE_PREFILL_CASE = (2, 1024, 0, 64, 4, 128, 1.0, 0)
+MOE_BWD_CASE = (1, 256, 256, 64, 4, 128, 1.0, 37)
+
+
 def fwd_cases():
-    """prefill_cases() plus the training shape, with and without a tail, and
-    the pipelined step's slices."""
-    return prefill_cases() + TRAIN_CASES + PIPE_CASES
+    """prefill_cases() plus the training shape, with and without a tail, the
+    pipelined step's slices and qwen3-moe's GQA-16 prefill."""
+    return prefill_cases() + TRAIN_CASES + PIPE_CASES + [MOE_PREFILL_CASE]
 
 
 def _check_bf16_row_stride() -> None:
@@ -342,7 +371,8 @@ DECODE_CASES = [SERVE_ROUND,
                 (3, 512, 8, 8, 32, [300, 1, 512]),
                 (2, 300, 8, 8, 16, [CHUNK + 1, 300]),
                 (2, 384, 16, 2, 64, [2 * CHUNK - 1, 384]),
-                (2, 640, 16, 8, 96, [3 * CHUNK, 641])]
+                (2, 640, 16, 8, 96, [3 * CHUNK, 641]),
+                (2, 2048, 64, 4, 128, [1040, 517])]      # qwen3-moe: GQA rep 16
 
 
 def phase_kernels() -> dict:
@@ -365,7 +395,7 @@ def phase_kernels() -> dict:
             e_out = _err(out, ref_out, tol, what + " O")
             e_lse = _err(lse, ref_lse, tol, what + " lse")
             worst = max(worst, e_out, e_lse)
-            if _main_path_case(b, l):
+            if _main_path_case(b, l) or hq // hkv == 16:
                 log(f"[kernels] {what}: max abs err O {e_out:.3g}, lse {e_lse:.3g} (tol {tol})")
             del out, lse, ref_out, ref_lse
         tol = TOL[dtype]
@@ -383,8 +413,11 @@ def phase_kernels() -> dict:
             out = decode_attention_kernel(q, k, v, lens)
             ref = decode_attention_ref(q, k, v, lens)
             torch.cuda.synchronize()
-            worst = max(worst, _err(out, ref, tol, f"decode {dtype} b={b} L={L} "
-                                    f"hq={hq} hkv={hkv} hd={hd} kv_len={kv_len}"))
+            what = f"decode {dtype} b={b} L={L} hq={hq} hkv={hkv} hd={hd} kv_len={kv_len}"
+            e = _err(out, ref, tol, what)
+            worst = max(worst, e)
+            if hq // hkv == 16:
+                log(f"[kernels] {what}: max abs err {e:.3g} (tol {tol})")
             empty = torch.as_tensor(kv_len, device="cuda").reshape(-1).expand(b) == 0
             if torch.count_nonzero(out[empty]).item():
                 raise AssertionError(f"decode {dtype} kv_len={kv_len}: kv_len 0 not exactly 0")
@@ -412,9 +445,9 @@ GQA_CTX_CASE = (2, 200, 100, 16, 4, 128, 1.0, 37)
 def bwd_cases():
     """prefill_cases() plus a ragged 33-row slice, a GQA slice whose ctx is
     not a multiple of the dK/dV kernel's 64-key tile, the training shape,
-    with and without a tail, and the pipelined step's slices."""
+    with and without a tail, the pipelined step's slices and a GQA-16 slice."""
     return (prefill_cases() + [(2, 33, 17, 8, 2, 64, 1.0, 37), GQA_CTX_CASE] + TRAIN_CASES
-            + PIPE_CASES)
+            + PIPE_CASES + [MOE_BWD_CASE])
 
 
 def _bwd_inputs(b, l, ctx, hq, hkv, hd, sc, dtype, gen, tail=37):
@@ -449,7 +482,7 @@ def phase_kernels_bwd() -> dict:
                  _err(dv, rdv, tol, what + " dV")]
             worst["terapipe_attention_dq"] = max(worst["terapipe_attention_dq"], e[0])
             worst["terapipe_attention_dkv"] = max(worst["terapipe_attention_dkv"], *e[1:])
-            if sc > 1 or _main_path_case(b, l):
+            if sc > 1 or _main_path_case(b, l) or hq // hkv == 16:
                 log(f"[kernels] {what}: max abs err dQ {e[0]:.3g}, dK {e[1]:.3g}, "
                     f"dV {e[2]:.3g} (tol {tol})")
             stale = torch.cat([dk[:, ctx + l:], dv[:, ctx + l:]])
@@ -628,40 +661,83 @@ def _rel(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def _check_train_against_plain(cfg, pipelined: Optional[Dict[str, TeraPipeConfig]] = None
-                               ) -> int:
+def _routing(entries: list, n_slices: int) -> list:
+    """Per MoE layer, in order, ``(topi, keep)`` of one forward pass from a
+    ``moe.ROUTING_LOG``: the layer's forward calls (those without autograd
+    where there are any, the explicit-backward schedules' forward units;
+    else its first ``n_slices``, before any recompute), the groups in token
+    order."""
+    layers: Dict[int, list] = {}
+    for router, topi, keep, grad in entries:
+        layers.setdefault(router.data_ptr(), []).append((topi, keep, grad))
+    out = []
+    for calls in layers.values():
+        fwd = [c for c in calls if not c[2]] or calls[:n_slices]
+        out.append((torch.cat([c[0] for c in fwd]), torch.cat([c[1] for c in fwd])))
+    return out
+
+
+def _changed(routes: list, ref: list) -> int:
+    """(token, choice) pairs whose expert is not among the token's choices
+    in ``ref``, over every layer."""
+    return sum(int((~(a[..., :, None] == b[..., None, :]).any(-1)).sum())
+               for (a, _), (b, _) in zip(routes, ref))
+
+
+def _drops(routes: list) -> str:
+    dropped = sum(int((~keep).sum()) for _, keep in routes)
+    total = sum(keep.numel() for _, keep in routes)
+    return f"{dropped} of {total} ({dropped / total:.4%})"
+
+
+def _check_train_against_plain(cfg, pipelined: Optional[Dict[str, TeraPipeConfig]] = None,
+                               gspmd: bool = False) -> int:
     """One loss and all its gradients at batch 1 x seq 2048 from one seeded
-    init: through the kernels (the gspmd step, or the pipelined step of each
-    of ``pipelined``'s configs on PIPE_RANKS ranks, one after another),
-    through the plain attention path, and through the plain path in
-    float32; each kernel run is held to the bounds.  Returns the number of
-    parameters."""
+    init: through the kernels (the gspmd step if ``gspmd``, and the
+    pipelined step of each of ``pipelined``'s configs on PIPE_RANKS ranks,
+    one after another), through the plain
+    attention path, and through the plain path in float32; each kernel run
+    is held to the bounds.  For the MoE family it also prints each bf16
+    path's routing drops and the (token, choice) assignments it changes
+    against the float32 path.  Returns the number of parameters."""
     variants = {"plain": cfg.replace(use_kernel=False),
                 "plain f32": cfg.replace(use_kernel=False, dtype=torch.float32),
                 "kernel": cfg.replace(use_kernel=True)}
     models = {name: build_model(c) for name, c in variants.items()}
-    if pipelined is None:
-        kernel_vgs = {"kernels": value_and_grad(models["kernel"].loss)}
-    else:
-        kernel_vgs = {f"pipelined ({label}) kernels": make_terapipe_value_and_grad(
-            models["kernel"], tcfg, TRAIN_SEQ, 1, PIPE_RANKS) for label, tcfg in pipelined.items()}
+    kernel_vgs = {}
+    if gspmd:
+        kernel_vgs["kernels"] = value_and_grad(models["kernel"].loss)
+    for label, tcfg in (pipelined or {}).items():
+        kernel_vgs[f"pipelined ({label}) kernels"] = make_terapipe_value_and_grad(
+            models["kernel"], tcfg, TRAIN_SEQ, 1, PIPE_RANKS)
     params = models["kernel"].init(seed=0)
     named = list(tree_items(params))
     for _, p in named:
         p.requires_grad_(True)
     toks = DataPipeline(SyntheticSource(cfg.vocab_size, 1), 1, TRAIN_SEQ).batch_at(0)
     batch = {k: torch.from_numpy(a).cuda() for k, a in toks.items()}
+    is_moe = cfg.family == "moe"
 
     def run(vg):
-        loss, grads = vg(params, batch)
-        return loss.detach(), list(tree_leaves(grads))
+        moe.ROUTING_LOG = [] if is_moe else None
+        try:
+            loss, grads = vg(params, batch)
+            routes = (_routing(moe.ROUTING_LOG, vg.plan.M if hasattr(vg, "plan") else 1)
+                      if is_moe else None)
+        finally:
+            moe.ROUTING_LOG = None
+        return loss.detach(), list(tree_leaves(grads)), routes
 
-    lp, gp = run(value_and_grad(models["plain"].loss))
-    l32, g32 = run(value_and_grad(models["plain f32"].loss))
+    lp, gp, rp = run(value_and_grad(models["plain"].loss))
+    l32, g32, r32 = run(value_and_grad(models["plain f32"].loss))
     p32 = [_rel(a, b) for a, b in zip(gp, g32)]
     wp = max(p32)
+    if is_moe:
+        log(f"[train] {cfg.name} routing, batch 1 x seq {TRAIN_SEQ}, {len(r32)} MoE layers: "
+            f"plain bf16 changes {_changed(rp, r32)} (token, choice) assignments of the plain "
+            f"f32 path's; drops plain f32 {_drops(r32)}, plain bf16 {_drops(rp)}")
     for label, vg in kernel_vgs.items():
-        lk, gk = run(vg)
+        lk, gk, rk = run(vg)
         if not (torch.isfinite(lk) and all(torch.isfinite(g).all() for g in gk)):
             raise AssertionError(f"train: non-finite loss or gradients, {label}")
         rel_loss = ((lk - lp).abs() / lp.abs()).item()
@@ -669,7 +745,12 @@ def _check_train_against_plain(cfg, pipelined: Optional[Dict[str, TeraPipeConfig
         k32 = [_rel(a, b) for a, b in zip(gk, g32)]
         del gk
         wk = max(k32)
-        log(f"[train] gpt3-1b FULL, batch 1 x seq {TRAIN_SEQ}: loss {label} {lk.item():.6f}, "
+        if is_moe:
+            log(f"[train] {cfg.name} routing, {label}: changes {_changed(rk, r32)} (token, "
+                f"choice) assignments of the plain f32 path's ({_changed(rk, rp)} of the plain "
+                f"bf16 path's); drops {_drops(rk)}")
+        log(f"[train] {cfg.name} FULL width, {cfg.n_layers} layers, batch 1 x seq {TRAIN_SEQ}: "
+            f"loss {label} {lk.item():.6f}, "
             f"plain {lp.item():.6f}, plain f32 {l32.item():.6f} (kernels vs plain relative "
             f"{rel_loss:.3g}, bound {LOSS_REL_BOUND})")
         log(f"[train] per-leaf |g - g_f32| / |g_f32| over {len(named)} leaves: {label} "
@@ -694,7 +775,22 @@ def _train_run(cfg, argv, label, per_step, steps: int = TRAIN_STEPS) -> tuple:
     base_gb = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     history = []
-    final = train_launch.main(argv, history=history)
+    # the MoE family: the routing record of each step's calls, split at the
+    # steps by a wrapper of train_step (the counts stay on the device)
+    step_fn, per_step_routes = train_launch.train_step, []
+    if cfg.family == "moe":
+        def train_step(*a):
+            moe.ROUTING_LOG = []
+            try:
+                return step_fn(*a)
+            finally:
+                per_step_routes.append(moe.ROUTING_LOG)
+                moe.ROUTING_LOG = None
+        train_launch.train_step = train_step
+    try:
+        final = train_launch.main(argv, history=history)
+    finally:
+        train_launch.train_step = step_fn
     torch.cuda.synchronize()
     counts = {name: fn.launches for name, fn in COUNTERS.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -713,7 +809,20 @@ def _train_run(cfg, argv, label, per_step, steps: int = TRAIN_STEPS) -> tuple:
     tokens = TRAIN_BATCH * TRAIN_SEQ
     metrics = {"step_ms": step_ms, "tok_s": tokens / step_ms * 1e3, "peak_gib": peak_gb,
                "base_gib": base_gb}
-    log(f"[{label}] gpt3-1b FULL, {steps} steps of batch {TRAIN_BATCH} x seq "
+    if per_step_routes:
+        # every evaluation of a routing call, recomputes included, is
+        # counted: a recompute repeats its forward's drops, so the share is
+        # the forward pass's
+        shares = []
+        for entries in per_step_routes:
+            dropped = sum(int((~keep).sum()) for _, _, keep, _ in entries)
+            shares.append(dropped / sum(keep.numel() for _, _, keep, _ in entries))
+        metrics["drop_share"] = shares
+        log(f"[{label}] routing drops per step (share of the (token, choice) pairs past "
+            f"capacity, over every routing call of the step): "
+            f"{', '.join(f'{x:.4%}' for x in shares)}")
+    log(f"[{label}] {cfg.name} FULL width, {cfg.n_layers} layers, {steps} steps of batch "
+        f"{TRAIN_BATCH} x seq "
         f"{TRAIN_SEQ}: losses {losses}; step {step_ms:.1f} ms (median of steps "
         f"2-{steps}), {metrics['tok_s']:.0f} tok/s, peak allocated {peak_gb:.2f} GiB "
         f"({base_gb:.2f} allocated before the run); "
@@ -721,10 +830,11 @@ def _train_run(cfg, argv, label, per_step, steps: int = TRAIN_STEPS) -> tuple:
     return counts, metrics
 
 
-def _launches_per_step(cfg, work_items: int, schedule: str = "contiguous") -> dict:
-    """Kernel launches of one training step that runs every layer on
-    ``work_items`` (slice, microbatch) pieces under ``schedule``, per layer
-    per piece:
+def _launches_per_step(cfg, work_items: int, schedule: str = "contiguous",
+                       pre_layers: int = 0) -> dict:
+    """Kernel launches of one training step that runs every layer but the
+    ``pre_layers`` before the pipeline on ``work_items`` (slice,
+    microbatch) pieces under ``schedule``, per layer per piece:
     * forward-only schedules (contiguous, interleaved, and the gspmd step):
       autograd over the step, where remat runs each layer's forward again
       in the backward (non-reentrant checkpoint): 1 + remat forward, 1 dQ,
@@ -734,13 +844,17 @@ def _launches_per_step(cfg, work_items: int, schedule: str = "contiguous") -> di
       inside it): 2 forward, 1 dQ, 1 dK/dV;
     * zb-h1: the same 2 forward (W takes B's graph, kept one tick), but B
       (the inputs' gradient) and W (the parameters') each run the
-      attention backward: 2 dQ, 2 dK/dV."""
+      attention backward: 2 dQ, 2 dK/dV.
+    A pre-group layer runs once on the whole sequence, differentiated by
+    autograd under any schedule: 1 + remat forward, 1 dQ, 1 dK/dV."""
     spec = REGISTRY[schedule]
-    n = work_items * cfg.n_layers
+    n = work_items * (cfg.n_layers - pre_layers)
     fwd = 2 if spec.has_backward or cfg.remat else 1
     bwd = 2 if spec.splits_backward else 1
-    return {"terapipe_attention_fwd": fwd * n,
-            "terapipe_attention_dq": bwd * n, "terapipe_attention_dkv": bwd * n}
+    pre_fwd = 2 if cfg.remat else 1
+    return {"terapipe_attention_fwd": fwd * n + pre_fwd * pre_layers,
+            "terapipe_attention_dq": bwd * n + pre_layers,
+            "terapipe_attention_dkv": bwd * n + pre_layers}
 
 
 def _gpt3_1b():
@@ -761,7 +875,7 @@ def phase_train():
     main run and its metrics."""
     cfg = _gpt3_1b()
     torch.cuda.empty_cache()
-    n_params = _check_train_against_plain(cfg)
+    n_params = _check_train_against_plain(cfg, gspmd=True)
     torch.cuda.empty_cache()
     counts, metrics = _train_run(cfg, TRAIN_ARGV, "train", _launches_per_step(cfg, 1))
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -819,7 +933,8 @@ def _profile_step(cfg, make_vg, label: str) -> None:
     if not per_name:
         raise AssertionError("train profile: torch.profiler recorded no device kernels")
     busy = sum(us for _, us in per_name.values())
-    log(f"[profile] gpt3-1b FULL {label}, one step of batch {TRAIN_BATCH} x seq {TRAIN_SEQ} "
+    log(f"[profile] {cfg.name} FULL width, {cfg.n_layers} layers, {label}, one step of batch "
+        f"{TRAIN_BATCH} x seq {TRAIN_SEQ} "
         f"(torch.profiler, CUDA activities): wall {wall_us / 1e3:.1f} ms, device kernels "
         f"{busy / 1e3:.1f} ms ({busy / wall_us:.1%} of the wall time) over "
         f"{sum(n for n, _ in per_name.values())} launches of {len(per_name)} kernels")
@@ -1311,7 +1426,286 @@ def phase_restart(peaks: dict) -> dict:
     return counts
 
 
-# --------------------------------------------------------------- 7. times
+# ------------------------------------------------------------------ 7. moe
+MOE_LAYERS = 3                  # deepseek-moe-16b: dense0 + 2 MoE layers
+QWEN_MOE_LAYERS = 2
+MOE_NONUNIFORM = (384, 256, 128, 640, 640)   # multiples of moe_block (128)
+MOE_SCHEDULES = ("contiguous", "1f1b")
+MOE_PROMPT = (2, 1024)          # qwen3-moe prefill: batch x tokens
+MOE_DECODE_STEPS = 16
+MOE_MAX_LEN = 2048
+LOGIT_REL_BOUND = 5e-2          # as phase 3: kernels vs plain attention, bf16
+
+
+def _checked(arch: str, want: dict, layers: int):
+    """``arch``'s FULL config, its widths checked, cut to ``layers`` layers."""
+    cfg = get_config(arch)
+    got = {k: getattr(cfg, k) for k in want}
+    if got != want:
+        raise AssertionError(f"{arch} FULL changed: {got} != {want}")
+    return cfg.replace(n_layers=layers)
+
+
+def _deepseek():
+    return _checked("deepseek-moe-16b", dict(
+        n_layers=28, d_model=2048, n_heads=16, n_kv_heads=16, hd=128, d_ff=11264,
+        vocab_size=102400, n_experts=64, moe_top_k=6, d_expert=1408, n_shared_experts=2,
+        moe_block=128, capacity_factor=1.25, dtype=torch.bfloat16, remat=True), MOE_LAYERS)
+
+
+def _qwen3_moe():
+    return _checked("qwen3-moe-235b-a22b", dict(
+        n_layers=94, d_model=4096, n_heads=64, n_kv_heads=4, hd=128, qk_norm=True,
+        vocab_size=151936, n_experts=128, moe_top_k=8, d_expert=1536, n_shared_experts=0,
+        moe_block=128, capacity_factor=1.25, dtype=torch.bfloat16), QWEN_MOE_LAYERS)
+
+
+def _moe_repeats(cfg) -> None:
+    """Two gspmd value-and-grad calls of deepseek at the training shape from
+    the same state: loss and every gradient leaf bit-equal (the dispatch's
+    backward is a gather, the combine a sum over the k choices: no atomics)."""
+    model = build_model(cfg.replace(use_kernel=True))
+    params = tree_map(lambda p: p.requires_grad_(True), model.init(seed=0))
+    toks = DataPipeline(SyntheticSource(cfg.vocab_size, 0), TRAIN_BATCH, TRAIN_SEQ).batch_at(0)
+    batch = {k: torch.from_numpy(a).cuda() for k, a in toks.items()}
+    vg = value_and_grad(model.loss)
+    first = vg(params, batch)
+    first = (first[0], list(tree_leaves(first[1])))
+    second = vg(params, batch)
+    differ = [name for (name, _), a, b in zip(tree_items(params), first[1],
+                                                tree_leaves(second[1])) if not torch.equal(a, b)]
+    if not torch.equal(first[0], second[0]) or differ:
+        raise AssertionError(f"deepseek gspmd step does not repeat: loss {first[0].item()} vs "
+                             f"{second[0].item()}, leaves differing: {differ}")
+    log(f"[moe] {cfg.name}, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, kernels: two gspmd "
+        f"value-and-grad calls from one state agree bit for bit (loss and all "
+        f"{len(first[1])} gradient leaves)")
+
+
+def _drop_sources(cfg) -> None:
+    """Where the routing drops come from at init: the share of the first
+    MoE layer's (token, choice) pairs past capacity at the training batch,
+    for its real input, for that input less its mean over every token, and
+    for i.i.d. normal input of the same rms."""
+    model = build_model(cfg.replace(use_kernel=True))
+    params = model.init(seed=0)
+    toks = DataPipeline(SyntheticSource(cfg.vocab_size, 0), TRAIN_BATCH, TRAIN_SEQ).batch_at(0)
+    shares = {}
+    with torch.no_grad():
+        x = model.embed(params, {"tokens": torch.from_numpy(toks["tokens"]).cuda()})
+        for g in model.groups[:-1]:
+            for bp in lm._unstack(params["groups"][g.name]):
+                x = g.full(bp, x)
+        bp = lm._unstack(params["groups"][model.groups[-1].name])[0]
+        x = x + attention.attn_full(bp["attn"], cfg, rms_norm(x, bp["ln_attn"]))
+        x = rms_norm(x, bp["ln_ffn"])
+        mean = x.float().mean((0, 1), keepdim=True)
+        rms = x.float().pow(2).mean().sqrt()
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        for name, xi in (("input", x), ("input less its token mean", x - mean.to(x.dtype)),
+                         ("i.i.d. normal", (torch.randn(x.shape, generator=gen, device="cuda")
+                                            * rms).to(x.dtype))):
+            moe.ROUTING_LOG = []
+            try:
+                moe.moe_ffn(bp["moe"], cfg, xi)
+                ((_, _, keep, _),) = moe.ROUTING_LOG
+            finally:
+                moe.ROUTING_LOG = None
+            shares[name] = (~keep).float().mean().item()
+    log(f"[moe] {cfg.name}, first MoE layer at init, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: "
+        f"drop share " + ", ".join(f"{k} {v:.4%}" for k, v in shares.items())
+        + f"; |token mean| / rms of the input {(mean.norm() / (rms * x.shape[-1] ** 0.5)).item():.3f}")
+
+
+def _row_routes(routes: list, n_layers: int, b: int) -> list:
+    """From an inference run's ``moe.ROUTING_LOG`` (prefill, then each
+    decode step, ``n_layers`` calls each): per compared step, per row, the
+    experts chosen for the row's last token and which of them kept their
+    capacity slot, over every layer."""
+    out = []
+    for i in range(0, len(routes), n_layers):
+        rows = []
+        for r in range(b):
+            sig = []
+            for _, topi, keep, _ in routes[i:i + n_layers]:
+                g = (r + 1) * (topi.shape[0] // b) - 1     # the row's last group
+                sig += [topi[g, -1], keep[g].reshape(topi.shape[1], -1)[-1]]
+            rows.append(sig)
+        out.append(rows)
+    return out
+
+
+def _moe_inference(cfg) -> dict:
+    """qwen3-moe at full width: Model.prefill of MOE_PROMPT tokens, then
+    MOE_DECODE_STEPS greedy decode_steps, through the kernels (the counted
+    run) and through the plain path on the kernel path's tokens.  Each
+    compared row (the prompt's last token, then each decoded one) whose
+    routing is the same on both paths in every layer (experts and capacity
+    slots) must agree within LOGIT_REL_BOUND; a row whose routing differs
+    (routing is discontinuous, and bf16 attention moves near-ties) is
+    counted and its error printed.  A greedy token may differ only where
+    the plain path's top-2 margin is within twice the row's logit
+    difference.  Returns the kernel run's launches."""
+    model = build_model(cfg.replace(use_kernel=True))
+    plain = build_model(cfg)
+    t0 = time.time()
+    params32 = model.init(seed=0)
+    # the bf16 paths cast every weight to bf16 at each use, so holding them
+    # in bf16 gives the same numbers in half the memory
+    params = tree_map(lambda a: a.to(torch.bfloat16), params32)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[moe] {cfg.name} FULL width, {cfg.n_layers} of 94 layers: {n_params / 1e9:.3f} B "
+        f"parameters, {n_params * 2 / 1e9:.2f} GB in bf16; init {time.time() - t0:.1f} s")
+    b, n = MOE_PROMPT
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (b, n), generator=gen, device="cuda")
+
+    @torch.no_grad()
+    def generate(m, forced=None, params=params):
+        moe.ROUTING_LOG = []
+        times = []
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            logits, caches = m.prefill(params, {"tokens": toks}, MOE_MAX_LEN)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            out, nxt = [logits[:, -1]], []
+            for i in range(MOE_DECODE_STEPS):
+                nxt.append(forced[i] if forced is not None else out[-1].argmax(-1))
+                t0 = time.time()
+                step, caches = m.decode_step(params, caches, {"tokens": nxt[-1][:, None]}, n + i)
+                torch.cuda.synchronize()
+                times.append(time.time() - t0)
+                out.append(step[:, -1])
+            routes = moe.ROUTING_LOG
+        finally:
+            moe.ROUTING_LOG = None
+        return out, nxt, times, routes
+
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    out_k, tok_k, times_k, routes_k = generate(model)
+    counts = {name: fn.launches for name, fn in COUNTERS.items()}
+    want = {"terapipe_attention_fwd": cfg.n_layers,
+            "decode_attention": cfg.n_layers * MOE_DECODE_STEPS}
+    if {k: v for k, v in counts.items() if v} != want:
+        raise AssertionError(f"{cfg.name} inference: launches {counts} != {want}")
+    out_p, _, times_p, routes_p = generate(plain, forced=tok_k)
+    # the anchor: the plain path in float32 on the same tokens
+    plain32 = build_model(cfg.replace(dtype=torch.float32))
+    out_32, _, _, routes_32 = generate(plain32, forced=tok_k, params=params32)
+    del params32
+    same_k, same_p, same_32 = (_row_routes(r, cfg.n_layers, b)
+                               for r in (routes_k, routes_p, routes_32))
+    alike = lambda u, w: all(torch.equal(x, y) for x, y in zip(u, w))
+    rel = lambda u, w: ((u - w).abs().max() / w.abs().max()).item()
+    worst, worst_rerouted, rerouted, flips = 0.0, 0.0, 0, 0
+    k32, p32 = [], []          # rows routed alike on all three paths
+    for i, (a, p, f) in enumerate(zip(out_k, out_p, out_32)):
+        if not torch.isfinite(a).all() or a.shape != (b, cfg.vocab_size):
+            raise AssertionError(f"{cfg.name} step {i}: non-finite or misshapen logits")
+        top2 = p.topk(2, dim=-1).values
+        for r in range(b):
+            diff = (a[r] - p[r]).abs().max()
+            if alike(same_k[i][r], same_p[i][r]):
+                worst = max(worst, rel(a[r], p[r]))
+                if alike(same_k[i][r], same_32[i][r]):
+                    k32.append(rel(a[r], f[r]))
+                    p32.append(rel(p[r], f[r]))
+            else:
+                rerouted += 1
+                worst_rerouted = max(worst_rerouted, rel(a[r], p[r]))
+            if a[r].argmax() != p[r].argmax():
+                flips += 1
+                if top2[r, 0] - top2[r, 1] > 2 * diff:
+                    raise AssertionError(f"{cfg.name} step {i} row {r}: greedy tokens differ "
+                                         f"at a top-2 margin {(top2[r, 0] - top2[r, 1]).item():.4g}"
+                                         f" beyond twice the logits' difference {diff.item():.4g}")
+    dropped = sum(int((~keep).sum()) for _, _, keep, _ in routes_k)
+    total = sum(keep.numel() for _, _, keep, _ in routes_k)
+    rows = b * len(out_k)
+    log(f"[moe] {_card()}; {cfg.name} inference, prefill {b} x {n} then {MOE_DECODE_STEPS} "
+        f"greedy decode steps (cache {MOE_MAX_LEN}), kernels vs plain attention on the same "
+        f"tokens: max abs logit err / max |logit| per row, worst {worst:.3g} over the "
+        f"{rows - rerouted} of {rows} rows routed alike (bound {LOGIT_REL_BOUND}); {rerouted} "
+        f"rows routed differently in some layer, worst {worst_rerouted:.3g}; against the "
+        f"plain f32 path on the {len(k32)} rows routed alike on all three: kernels worst "
+        f"{max(k32, default=0.0):.3g}, plain bf16 worst {max(p32, default=0.0):.3g}; greedy tokens "
+        f"differ at {flips} of {rows} (each within a top-2 margin of twice its row's logit "
+        f"difference); prefill {times_k[0] * 1e3:.1f} ms (plain {times_p[0] * 1e3:.1f}), "
+        f"decode step median {statistics.median(times_k[1:]) * 1e3:.2f} ms (plain "
+        f"{statistics.median(times_p[1:]) * 1e3:.2f}); routing drops of the kernel run "
+        f"{dropped} of {total}; launches {counts}")
+    if worst > LOGIT_REL_BOUND:
+        raise AssertionError(f"{cfg.name} inference: kernels and plain path disagree ({worst:.3g})")
+    del params
+    return counts
+
+
+def phase_moe() -> dict:
+    """The MoE family at full width: deepseek-moe-16b (MOE_LAYERS layers)
+    trained through launch.train (gspmd, and the pipelined step with dense0
+    as a pre-group under MOE_SCHEDULES), with the parity and determinism
+    checks; then qwen3-moe-235b-a22b (QWEN_MOE_LAYERS layers) prefill and
+    decode.  Returns the launches of its main runs."""
+    cfg = _deepseek()
+    get_config_full = train_launch.get_config
+    train_launch.get_config = lambda arch, smoke: get_config_full(arch, smoke).replace(
+        n_layers=MOE_LAYERS)
+    counts, runs = {}, {}
+    try:
+        torch.cuda.empty_cache()
+        parity = {f"{s}, K {PIPE_RANKS}, M {PIPE_SLICES}": TeraPipeConfig(
+            n_token_slices=PIPE_SLICES, schedule=s) for s in MOE_SCHEDULES}
+        parity[f"contiguous, K {PIPE_RANKS}, slices {list(MOE_NONUNIFORM)}"] = TeraPipeConfig(
+            slice_lens=MOE_NONUNIFORM)
+        n_params = _check_train_against_plain(cfg, parity, gspmd=True)
+        log(f"[moe] {cfg.name} FULL width, {MOE_LAYERS} of 28 layers (dense0 + "
+            f"{MOE_LAYERS - 1} MoE): {n_params / 1e9:.3f} B parameters")
+        torch.cuda.empty_cache()
+        _moe_repeats(cfg)
+        torch.cuda.empty_cache()
+        _drop_sources(cfg)
+        torch.cuda.empty_cache()
+        argv = [a if a != "gpt3-1b" else "deepseek-moe-16b" for a in TRAIN_ARGV]
+        counts["deepseek gspmd"], runs["gspmd"] = _train_run(
+            cfg, argv, "moe gspmd", _launches_per_step(cfg, 1))
+        torch.cuda.empty_cache()
+        for schedule in MOE_SCHEDULES:
+            model = build_model(cfg)
+            plan = make_terapipe_value_and_grad(model, TeraPipeConfig(
+                n_token_slices=PIPE_SLICES, schedule=schedule), TRAIN_SEQ, TRAIN_BATCH,
+                PIPE_RANKS).plan
+            log(f"[moe] {schedule}: pre-groups {[g.name for g in plan.pre]} before the "
+                f"pipeline; {plan.main.name} layers per (rank, chunk) " + ", ".join(
+                    f"{kv}: [{lo}, {hi})" + (" pad rows only" if lo == hi else "")
+                    for kv, (lo, hi) in sorted(plan.rows.items())))
+            del model, plan
+            counts[f"deepseek {schedule}"], runs[schedule] = _train_run(
+                cfg, argv + ["--mode", "terapipe", "--token-slices", str(PIPE_SLICES),
+                             "--schedule", schedule],
+                f"moe {schedule}", _launches_per_step(cfg, PIPE_SLICES, schedule, pre_layers=1),
+                steps=PIPE_STEPS)
+            torch.cuda.empty_cache()
+    finally:
+        train_launch.get_config = get_config_full
+    per_step = {k: {n: c // (TRAIN_STEPS if k.endswith("gspmd") else PIPE_STEPS)
+                    for n, c in v.items()} for k, v in counts.items()}
+    log(f"[moe] {_card()}; {cfg.name} FULL width, {MOE_LAYERS} layers, batch {TRAIN_BATCH} x "
+        f"seq {TRAIN_SEQ}, --use-kernel: " + "; ".join(
+            f"{s} {m['step_ms']:.1f} ms/step, {m['tok_s']:.0f} tok/s, peak "
+            f"{m['peak_gib'] - m['base_gib']:.2f} GiB above the {m['base_gib']:.2f} GiB "
+            f"baseline, drops {max(m['drop_share']):.4%} at most, launches per step "
+            f"{per_step['deepseek ' + s]}" for s, m in runs.items()))
+    torch.cuda.empty_cache()
+    counts["qwen3-moe inference"] = _moe_inference(_qwen3_moe())
+    torch.cuda.empty_cache()
+    return counts
+
+
+# --------------------------------------------------------------- 8. times
 def phase_times(errs: dict, launches: dict) -> list:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1409,11 +1803,11 @@ def phase_times(errs: dict, launches: dict) -> list:
     return rows
 
 
-# ------------------------------------------------------------ 8. profiles
+# ------------------------------------------------------------ 9. profiles
 def phase_profiles() -> None:
     """One gspmd step and two pipelined steps (M = PIPE_SLICES, contiguous
-    and 1f1b) under
-    torch.profiler, last: after a profiled region the host's eager launches
+    and 1f1b) of gpt3-1b and one gspmd step of deepseek-moe-16b (phase 7's
+    depth) under torch.profiler, last: after a profiled region the host's eager launches
     run slower for the rest of the process, which a host-bound run (the
     pipelined step, the stage sweep) shows in its times, so every timed
     eager run comes before it."""
@@ -1427,6 +1821,9 @@ def phase_profiles() -> None:
             model, tcfg, TRAIN_SEQ, TRAIN_BATCH, PIPE_RANKS),
             f"terapipe {schedule} M {PIPE_SLICES}")
         torch.cuda.empty_cache()
+    _profile_step(_deepseek().replace(use_kernel=True),
+                  lambda model: value_and_grad(model.loss), "gspmd")
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1453,6 +1850,8 @@ def main() -> int:
     paths.update(phase_restart({"gspmd": above(train),
                                 RESUME_SCHEDULE: above(pipe_runs[RESUME_SCHEDULE])}))
     done("restart")
+    paths.update(phase_moe())
+    done("moe")
     launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in COUNTERS}
     log(f"[launches] main paths: {paths}")
     rows = phase_times(errs, launches)

@@ -16,7 +16,8 @@ ARCHS = [
 ]
 PAPER_ARCHS = ["gpt3-1b", "gpt3-13b", "gpt3-44b", "gpt3-175b"]
 
-_PORTED = {"qwen3-0.6b": "qwen3_0_6b", "gpt3-1b": "gpt3", "gpt3-13b": "gpt3",
+_PORTED = {"qwen3-0.6b": "qwen3_0_6b", "qwen3-moe-235b-a22b": "qwen3_moe",
+           "deepseek-moe-16b": "deepseek_moe", "gpt3-1b": "gpt3", "gpt3-13b": "gpt3",
            "gpt3-44b": "gpt3", "gpt3-175b": "gpt3"}
 
 

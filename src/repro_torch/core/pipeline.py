@@ -76,7 +76,7 @@ import torch
 
 from repro_torch.models import Model
 from repro_torch.models.common import rms_norm
-from repro_torch.models.lm import BlockGroup, _remat, _unstack, _xent_chunk
+from repro_torch.models.lm import BlockGroup, _remat, _scan_full, _unstack, _xent_chunk
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 from .schedules import (KIND_BWD, KIND_BWD_INPUT, KIND_BWD_WEIGHT, KIND_FWD, get_schedule,
@@ -166,15 +166,18 @@ class _ResidualStore:
         return value
 
 
-def _main_group(model: Model) -> BlockGroup:
-    """The pipelined group.  The reference (``_group_split``, ``:173``) also
-    runs small pre/post groups around the pipeline for the MoE and hybrid
-    families; the port's models are dense, one homogeneous group."""
-    if len(model.groups) != 1:
-        raise NotImplementedError(
-            f"family {model.cfg.family!r}: the pipeline runs single-group "
-            f"(dense) models (ROADMAP Queue 1 item 8)")
-    return model.groups[0]
+def _group_split(model: Model) -> Tuple[List[BlockGroup], BlockGroup, List[BlockGroup]]:
+    """``(pre_groups, main_group, post_groups)`` (reference ``_group_split``,
+    ``:173-189``): only the main group, the last (homogeneous) one, is
+    pipelined; the small pre-groups (DeepSeek's dense first layer) run
+    before it on the whole sequence.  The hybrid family's post-groups and
+    the enc-dec family are not yet ported (ROADMAP Queue 1 item 8)."""
+    gs = model.groups
+    if model.cfg.family in ("dense", "moe"):     # [blocks] | [dense0?, moe]
+        return list(gs[:-1]), gs[-1], []
+    raise NotImplementedError(
+        f"family {model.cfg.family!r}: the pipeline runs the dense and moe families "
+        f"(post-groups and the enc-dec split: ROADMAP Queue 1 item 8)")
 
 
 class _Plan:
@@ -191,7 +194,7 @@ class _Plan:
 
         self.V = V = tcfg.virtual_stages
         self.sched = "interleaved" if tcfg.schedule == "contiguous" and V > 1 else tcfg.schedule
-        self.main = _main_group(model)
+        self.pre, self.main, self.post = _group_split(model)
         self.n_main = self.main.count
         # the registry validates the (schedule, V) combination and builds
         # the IR value the tick loop interprets
@@ -228,9 +231,13 @@ class _Plan:
         self.ring = LocalRing(K)
 
     def prefix(self, params, batch) -> torch.Tensor:
-        """Embedding in the activation dtype (the port's models have no
-        pre-pipeline groups)."""
-        return self.model.embed(params, batch, 0).to(self.cfg.dtype)
+        """The prologue before the pipeline (reference ``:307-319``): the
+        embedding, then the pre-groups on the whole sequence (each layer
+        under checkpoint when ``cfg.remat``), in the activation dtype."""
+        x = self.model.embed(params, batch, 0)
+        for g in self.pre:
+            x = _scan_full(g, params["groups"][g.name], x, self.cfg.remat, self.cfg)
+        return x.to(self.cfg.dtype)
 
     def rows_of(self, a: torch.Tensor, d: int, m: int) -> torch.Tensor:
         """Microbatch ``d``'s rows of slice ``m`` of a (B, L, ...) tensor."""
@@ -358,8 +365,10 @@ def _make_explicit_value_and_grad(p: _Plan) -> Callable:
     """``(params, batch) -> (loss, grads)`` of an explicit-backward schedule
     (reference ``_make_explicit_value_and_grad`` and the bwd branches of
     ``_make_pipeline_body``, ``:602-713``): one tick loop computes the loss
-    and every gradient; the embedding's comes from one autograd pass over
-    the prologue at the end."""
+    and every gradient; the embedding's and the pre-groups' come from one
+    autograd pass over the prologue at the end."""
+    assert not p.post, ("explicit-backward schedules need the head and loss at the last "
+                        "stage; post-pipeline groups are not token-local")
     tied = p.cfg.tie_embeddings
     spread = p.assign.residual_spread(p.DM)
     inv_total = 1.0 / float(p.B * p.L)
@@ -374,9 +383,13 @@ def _make_explicit_value_and_grad(p: _Plan) -> Callable:
         final_ln = params["final_ln"].detach().requires_grad_()
         w_head_leaf = (params["embed"] if tied else params["lm_head"]).detach().requires_grad_()
         labels = batch["labels"]
+        # the prologue's parameters as leaves of their own: the embedding
+        # and every pre-group
+        pro = {"embed": params["embed"],
+               "groups": {g.name: params["groups"][g.name] for g in p.pre}}
+        pro = tree_map(lambda a: a.detach().requires_grad_(), pro)
         with torch.enable_grad():
-            embed = params["embed"].detach().requires_grad_()
-            x_emb = p.prefix({**params, "embed": embed}, batch)
+            x_emb = p.prefix({**params, **pro}, batch)
         x_det = x_emb.detach()
 
         f32 = lambda a: torch.zeros(a.shape, dtype=torch.float32, device=a.device)
@@ -479,13 +492,13 @@ def _make_explicit_value_and_grad(p: _Plan) -> Callable:
         assert not store.slots and not held.slots, "units left without their backward"
         value_and_grad_fn.residual_peak = store.peak
 
-        (d_embed,) = torch.autograd.grad(x_emb, embed, d_emb)
-        named = {"embed": d_embed.float(), "final_ln": d_head[0]}
+        d_pro = tree_unflatten(pro, torch.autograd.grad(x_emb, list(tree_leaves(pro)), d_emb))
+        named = {"embed": d_pro["embed"].float(), "final_ln": d_head[0]}
         if tied:
             named["embed"] = named["embed"] + d_head[1]
         else:
             named["lm_head"] = d_head[1]
-        named["groups"] = {main_name: d_main}
+        named["groups"] = {**d_pro["groups"], main_name: d_main}
         grads = {key: tree_map(lambda g, a: g.to(a.dtype), named[key], params[key])
                  for key in params}
         return loss, grads

@@ -6,6 +6,8 @@
         --mode terapipe --token-slices 8 --steps 5 --batch 4 --seq 2048
     python -m repro_torch.launch.train --arch gpt3-1b --smoke --device cpu \\
         --mode terapipe --dp-plan --steps 3 --batch 2 --seq 512
+    python -m repro_torch.launch.train --arch deepseek-moe-16b --smoke --device cpu \\
+        --mode terapipe --seq 64 --token-slices 4 --steps 3 --batch 2
 
 Each step computes the loss and its gradients on a synthetic batch, then
 AdamW with a cosine schedule updates the parameters, all on ``--device``
@@ -220,6 +222,8 @@ def main(argv=None, history: Optional[list] = None, out: Optional[dict] = None) 
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.use_kernel:
         cfg = cfg.replace(use_kernel=True)
+    if cfg.family == "moe":          # a routing group is moe_block tokens
+        args.seq = max(args.seq, cfg.moe_block)
     model = build_model(cfg, device=args.device)
     dev = model.device
     vg_fn = build_value_and_grad(model, args)

@@ -1,4 +1,5 @@
-"""Model assembly, dense decoder family (reference: ``repro/models/lm.py``).
+"""Model assembly, the dense and MoE decoder families (reference:
+``repro/models/lm.py``).
 
 A model is a stack of *block groups*: homogeneous runs of layers whose
 per-layer parameters are stacked on a leading axis (``_stack_init``).  The
@@ -7,22 +8,26 @@ index here; there is no ``jit`` — the port runs eagerly.  ``jax.checkpoint``
 is ``torch.utils.checkpoint`` (non-reentrant): under ``cfg.remat`` each
 layer keeps only its input for the backward pass and recomputes the rest.
 
-Ported: the dense group's ``full``, ``sliced``, ``sliced_dyn`` and
-``decode`` modes; the training surface (``forward``, ``loss``,
+Ported: the dense and MoE groups' ``full``, ``sliced``, ``sliced_dyn`` and
+``decode`` modes, and the group lists of both families
+(``_dense_like_groups``: DeepSeek's first dense layer ``dense0`` before the
+``moe`` group); the training surface (``forward``, ``loss``,
 ``head_loss``, ``chunked_xent``) and the serving surface (``init``,
 ``embed``, ``head``, ``init_caches``, ``prefill``, ``decode_step``) of
 ``build_model``.  The other families arrive with later slices.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
+from . import attention as attn_mod
 from . import layers as layers_mod
+from . import moe as moe_mod
 from .common import ModelConfig, embed_init, rms_norm
 
 Params = Dict[str, Any]
@@ -135,6 +140,28 @@ def chunked_xent(x: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor,
     return total / (b * s)
 
 
+def _dense_like_groups(cfg: ModelConfig) -> List[Tuple[str, int, str]]:
+    """``[(group_name, count, kind)]`` of the block stack (reference
+    ``lm.py:173-194``); the ssm, hybrid and vlm families are not yet
+    ported (ROADMAP Queue 1 item 8)."""
+    if cfg.family == "dense":
+        return [("blocks", cfg.n_layers, "dense")]
+    if cfg.family == "moe":
+        first_dense = 1 if cfg.n_shared_experts else 0   # deepseek convention
+        gs = [("dense0", first_dense, "dense")] if first_dense else []
+        gs.append(("moe", cfg.n_layers - first_dense, "moe"))
+        return gs
+    raise NotImplementedError(f"family {cfg.family!r}: not yet ported (ROADMAP Queue 1 item 8)")
+
+
+def _kv_cache_init(cfg: ModelConfig, count: int, device) -> Callable:
+    def init_cache(batch, max_len, dtype=torch.bfloat16):
+        shape = (count, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+    return init_cache
+
+
 def _make_dense_group(cfg: ModelConfig, name: str, count: int, device):
     def full(bp, x):
         return layers_mod.dense_block_full(bp, cfg, x)
@@ -148,16 +175,42 @@ def _make_dense_group(cfg: ModelConfig, name: str, count: int, device):
     def decode(bp, x, cache, pos):
         return layers_mod.dense_block_decode(bp, cfg, x, cache, pos)
 
-    def init_cache(batch, max_len, dtype=torch.bfloat16):
-        shape = (count, batch, max_len, cfg.n_kv_heads, cfg.hd)
-        return (torch.zeros(shape, dtype=dtype, device=device),
-                torch.zeros(shape, dtype=dtype, device=device))
-
     def init_params(gen):
         return _stack_init(lambda g: layers_mod.init_dense_block(g, cfg), gen, count)
 
-    return BlockGroup(name, count, full, sliced, decode, init_cache,
+    return BlockGroup(name, count, full, sliced, decode, _kv_cache_init(cfg, count, device),
                       sliced_dyn), init_params
+
+
+def _make_moe_group(cfg: ModelConfig, name: str, count: int, device):
+    """Pre-norm attention, then the MoE FFN (reference ``lm.py:222-267``)."""
+    def init_one(gen):
+        zeros = lambda: torch.zeros((cfg.d_model,), dtype=torch.float32, device=gen.device)
+        return {"attn": attn_mod.init_attn(gen, cfg), "moe": moe_mod.init_moe(gen, cfg),
+                "ln_attn": zeros(), "ln_ffn": zeros()}
+
+    def ffn(bp, x):
+        return x + moe_mod.moe_ffn(bp["moe"], cfg, rms_norm(x, bp["ln_ffn"]))
+
+    def full(bp, x):
+        x = x + attn_mod.attn_full(bp["attn"], cfg, rms_norm(x, bp["ln_attn"]))
+        return ffn(bp, x)
+
+    def with_cache(attn_fn):
+        def block(bp, x, cache, arg):
+            a, cache = attn_fn(bp["attn"], cfg, rms_norm(x, bp["ln_attn"]), cache, arg)
+            return ffn(bp, x + a), cache
+        return block
+
+    def init_params(gen):
+        return _stack_init(init_one, gen, count)
+
+    return BlockGroup(name, count, full, with_cache(attn_mod.attn_sliced),
+                      with_cache(attn_mod.attn_decode), _kv_cache_init(cfg, count, device),
+                      with_cache(attn_mod.attn_sliced_dyn)), init_params
+
+
+_GROUP_MAKERS = {"dense": _make_dense_group, "moe": _make_moe_group}
 
 
 class Model(torch.nn.Module):
@@ -168,12 +221,13 @@ class Model(torch.nn.Module):
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(f"family {cfg.family!r}: not yet ported")
         self.cfg = cfg
         self.device = device
-        group, self._init_group = _make_dense_group(cfg, "blocks", cfg.n_layers, device)
-        self.groups: List[BlockGroup] = [group]
+        self.groups: List[BlockGroup] = []
+        self._init_groups: Dict[str, Callable] = {}
+        for name, count, kind in _dense_like_groups(cfg):
+            group, self._init_groups[name] = _GROUP_MAKERS[kind](cfg, name, count, device)
+            self.groups.append(group)
 
     @property
     def n_blocks(self) -> int:
@@ -181,11 +235,13 @@ class Model(torch.nn.Module):
 
     def init(self, seed: int) -> Params:
         """Random parameters from a ``torch.Generator`` seeded with ``seed``
-        on the model's device (same distributions as the reference)."""
+        on the model's device (same distributions as the reference), drawn
+        in the reference's order: the embedding, each group in stack order,
+        the head."""
         cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params: Params = {"embed": embed_init(gen, (cfg.vocab_size, cfg.d_model)),
-                          "groups": {"blocks": self._init_group(gen)}}
+        params: Params = {"embed": embed_init(gen, (cfg.vocab_size, cfg.d_model))}
+        params["groups"] = {name: init(gen) for name, init in self._init_groups.items()}
         params["final_ln"] = torch.zeros((cfg.d_model,), dtype=torch.float32,
                                          device=self.device)
         if not cfg.tie_embeddings:
