@@ -105,14 +105,34 @@ result line):
                Model.prefill of 2 x 1024 tokens and 16 greedy decode_steps
                through the kernels against the plain path (logits of every
                row routed alike within 5e-2; greedy tokens);
-  8. times   — each kernel at a main-path shape (CUDA events, median of 30
+  8. state   — the state-carrying families at full width; neither reaches
+               the kernels (mamba2 has no attention, recurrentgemma's is
+               windowed and takes the plain route), so every launch count of
+               their runs must stay 0.  mamba2-2.7b (d 2560, d_inner 5120, 80
+               SSD heads of 64, state 128, conv 4, chunk 256, vocab 50280)
+               cut to 40 of 64 layers: the loss and gradients in bf16 against
+               f32 at batch 1 x seq 2048 (phase 4's bounds) under gspmd and
+               the pipelined step (K 4, M 8) with contiguous and interleaved
+               (V 2); two gspmd calls at batch 4 x seq 2048 bit-equal; 5 gspmd
+               steps and 3 contiguous steps through launch.train.main at batch
+               4 x seq 2048 with ms/step, tok/s and peak memory.  Then
+               recurrentgemma-9b (d 4096, 16 query heads and 1 KV head of 256,
+               d_ff 12288, vocab 256000, window 2048) cut to 14 of 38 layers
+               (4 super-blocks and the 2-block tail, a post-group of the
+               pipeline): the same parity at batch 1 x seq 4096 under gspmd
+               and contiguous (K 4, M 8); one timed value-and-grad call of
+               each at batch 2 x seq 4096 with its peak; Model.prefill of 2 x
+               3072 tokens into 3200 rows, then 64 greedy decode_steps through
+               the windowed ring, every logit row within 5e-2 of Model.forward
+               of the same tokens;
+  9. times   — each kernel at a main-path shape (CUDA events, median of 30
                after warm-up, L2 flushed before each launch) beside its
                bound, its plain version and one PyTorch library call; the
                forward also at the training shape (train_ms, train_bound_ms,
                train_library_ms);
-  9. profiles — one gspmd step and two pipelined steps (M 8, contiguous and
-               1f1b) of gpt3-1b, and one gspmd step of deepseek-moe-16b
-               (3 layers), under
+ 10. profiles — one gspmd step and two pipelined steps (M 8, contiguous and
+               1f1b) of gpt3-1b, and one gspmd step each of deepseek-moe-16b
+               (3 layers) and mamba2-2.7b (40 layers), under
                torch.profiler: the 15 device kernels that took the most
                time and the repo's own kernels wherever they rank, with
                their share of the step, the device's busy share, and the
@@ -691,30 +711,33 @@ def _drops(routes: list) -> str:
 
 
 def _check_train_against_plain(cfg, pipelined: Optional[Dict[str, TeraPipeConfig]] = None,
-                               gspmd: bool = False) -> int:
-    """One loss and all its gradients at batch 1 x seq 2048 from one seeded
+                               gspmd: bool = False, seq: int = TRAIN_SEQ,
+                               route: str = "kernels") -> int:
+    """One loss and all its gradients at batch 1 x ``seq`` from one seeded
     init: through the kernels (the gspmd step if ``gspmd``, and the
     pipelined step of each of ``pipelined``'s configs on PIPE_RANKS ranks,
     one after another), through the plain
     attention path, and through the plain path in float32; each kernel run
     is held to the bounds.  For the MoE family it also prints each bf16
     path's routing drops and the (token, choice) assignments it changes
-    against the float32 path.  Returns the number of parameters."""
+    against the float32 path.  ``route`` names the bf16 runs in the lines
+    (a family whose attention takes the plain route, or has none, runs the
+    same code with ``use_kernel``).  Returns the number of parameters."""
     variants = {"plain": cfg.replace(use_kernel=False),
                 "plain f32": cfg.replace(use_kernel=False, dtype=torch.float32),
                 "kernel": cfg.replace(use_kernel=True)}
     models = {name: build_model(c) for name, c in variants.items()}
     kernel_vgs = {}
     if gspmd:
-        kernel_vgs["kernels"] = value_and_grad(models["kernel"].loss)
+        kernel_vgs[route] = value_and_grad(models["kernel"].loss)
     for label, tcfg in (pipelined or {}).items():
-        kernel_vgs[f"pipelined ({label}) kernels"] = make_terapipe_value_and_grad(
-            models["kernel"], tcfg, TRAIN_SEQ, 1, PIPE_RANKS)
+        kernel_vgs[f"pipelined ({label}) {route}"] = make_terapipe_value_and_grad(
+            models["kernel"], tcfg, seq, 1, PIPE_RANKS)
     params = models["kernel"].init(seed=0)
     named = list(tree_items(params))
     for _, p in named:
         p.requires_grad_(True)
-    toks = DataPipeline(SyntheticSource(cfg.vocab_size, 1), 1, TRAIN_SEQ).batch_at(0)
+    toks = DataPipeline(SyntheticSource(cfg.vocab_size, 1), 1, seq).batch_at(0)
     batch = {k: torch.from_numpy(a).cuda() for k, a in toks.items()}
     is_moe = cfg.family == "moe"
 
@@ -749,15 +772,15 @@ def _check_train_against_plain(cfg, pipelined: Optional[Dict[str, TeraPipeConfig
             log(f"[train] {cfg.name} routing, {label}: changes {_changed(rk, r32)} (token, "
                 f"choice) assignments of the plain f32 path's ({_changed(rk, rp)} of the plain "
                 f"bf16 path's); drops {_drops(rk)}")
-        log(f"[train] {cfg.name} FULL width, {cfg.n_layers} layers, batch 1 x seq {TRAIN_SEQ}: "
+        log(f"[train] {cfg.name} FULL width, {cfg.n_layers} layers, batch 1 x seq {seq}: "
             f"loss {label} {lk.item():.6f}, "
-            f"plain {lp.item():.6f}, plain f32 {l32.item():.6f} (kernels vs plain relative "
+            f"plain {lp.item():.6f}, plain f32 {l32.item():.6f} ({route} vs plain relative "
             f"{rel_loss:.3g}, bound {LOSS_REL_BOUND})")
         log(f"[train] per-leaf |g - g_f32| / |g_f32| over {len(named)} leaves: {label} "
             f"worst {wk:.3g} ({named[k32.index(wk)][0]}), median {statistics.median(k32):.3g}; "
             f"plain bf16 worst {wp:.3g} ({named[p32.index(wp)][0]}), median "
-            f"{statistics.median(p32):.3g}; kernels vs plain bf16 worst {max(vs_plain):.3g} "
-            f"(bound: kernels worst <= {GRAD_F32_RATIO} x plain worst)")
+            f"{statistics.median(p32):.3g}; {route} vs plain bf16 worst {max(vs_plain):.3g} "
+            f"(bound: {route} worst <= {GRAD_F32_RATIO} x plain worst)")
         if rel_loss > LOSS_REL_BOUND or wk > GRAD_F32_RATIO * wp:
             raise AssertionError(f"train: {label} is off the plain path beyond the bounds")
     return sum(p.numel() for _, p in named)
@@ -1460,10 +1483,11 @@ def _qwen3_moe():
         moe_block=128, capacity_factor=1.25, dtype=torch.bfloat16), QWEN_MOE_LAYERS)
 
 
-def _moe_repeats(cfg) -> None:
-    """Two gspmd value-and-grad calls of deepseek at the training shape from
-    the same state: loss and every gradient leaf bit-equal (the dispatch's
-    backward is a gather, the combine a sum over the k choices: no atomics)."""
+def _repeats(cfg, tag: str) -> None:
+    """Two gspmd value-and-grad calls at the training shape from the same
+    state: loss and every gradient leaf bit-equal (deepseek: the dispatch's
+    backward is a gather, the combine a sum over the k choices, so no
+    atomics; mamba2: the chunk scan is a fixed loop of matmuls)."""
     model = build_model(cfg.replace(use_kernel=True))
     params = tree_map(lambda p: p.requires_grad_(True), model.init(seed=0))
     toks = DataPipeline(SyntheticSource(cfg.vocab_size, 0), TRAIN_BATCH, TRAIN_SEQ).batch_at(0)
@@ -1475,9 +1499,9 @@ def _moe_repeats(cfg) -> None:
     differ = [name for (name, _), a, b in zip(tree_items(params), first[1],
                                                 tree_leaves(second[1])) if not torch.equal(a, b)]
     if not torch.equal(first[0], second[0]) or differ:
-        raise AssertionError(f"deepseek gspmd step does not repeat: loss {first[0].item()} vs "
+        raise AssertionError(f"{cfg.name} gspmd step does not repeat: loss {first[0].item()} vs "
                              f"{second[0].item()}, leaves differing: {differ}")
-    log(f"[moe] {cfg.name}, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, kernels: two gspmd "
+    log(f"[{tag}] {cfg.name}, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, use_kernel: two gspmd "
         f"value-and-grad calls from one state agree bit for bit (loss and all "
         f"{len(first[1])} gradient leaves)")
 
@@ -1665,7 +1689,7 @@ def phase_moe() -> dict:
         log(f"[moe] {cfg.name} FULL width, {MOE_LAYERS} of 28 layers (dense0 + "
             f"{MOE_LAYERS - 1} MoE): {n_params / 1e9:.3f} B parameters")
         torch.cuda.empty_cache()
-        _moe_repeats(cfg)
+        _repeats(cfg, "moe")
         torch.cuda.empty_cache()
         _drop_sources(cfg)
         torch.cuda.empty_cache()
@@ -1705,7 +1729,202 @@ def phase_moe() -> dict:
     return counts
 
 
-# --------------------------------------------------------------- 8. times
+# --------------------------------------------------------------- 8. state
+MAMBA_LAYERS = 40               # mamba2-2.7b: 40 of 64 layers (AdamW's 7 f32 copies fit)
+RG_LAYERS = 14                  # recurrentgemma-9b: 4 x (rec, rec, attn) + the 2-block tail
+RG_BATCH, RG_SEQ = 2, 4096      # above the 2048 window, so that it masks
+RG_PROMPT = (2, 3072)           # recurrentgemma prefill: batch x tokens
+RG_MAX_LEN = 3200
+RG_DECODE_STEPS = 64
+
+
+def _mamba2():
+    return _checked("mamba2-2.7b", dict(
+        n_layers=64, d_model=2560, ssm_expand=2, ssm_head_dim=64, ssm_state=128, ssm_conv=4,
+        ssm_chunk=256, vocab_size=50280, tie_embeddings=False, dtype=torch.bfloat16,
+        remat=True), MAMBA_LAYERS)
+
+
+def _recurrentgemma():
+    return _checked("recurrentgemma-9b", dict(
+        n_layers=38, d_model=4096, n_heads=16, n_kv_heads=1, hd=256, d_ff=12288,
+        vocab_size=256000, window=2048, block_pattern=("rec", "rec", "attn"), rglru_conv=4,
+        tie_embeddings=False, dtype=torch.bfloat16, remat=True), RG_LAYERS)
+
+
+def _no_launches(what: str) -> dict:
+    """The launch counts since they were set to 0, which must all be 0 on a
+    path that reaches none of the kernels."""
+    counts = {name: fn.launches for name, fn in COUNTERS.items()}
+    if any(counts.values()):
+        raise AssertionError(f"{what}: launched {counts}, a path without the kernels")
+    return counts
+
+
+def _timed_vg(model, make_vg, label: str) -> dict:
+    """``make_vg(model)`` at batch RG_BATCH x RG_SEQ from one seeded init:
+    one warm-up call, then one timed call with every launch counter set to 0
+    just before; its ms, loss and peak allocated memory above the baseline
+    before it."""
+    vg = make_vg(model)
+    params = tree_map(lambda p: p.requires_grad_(True), model.init(seed=0))
+    toks = DataPipeline(SyntheticSource(model.cfg.vocab_size, 0), RG_BATCH,
+                        RG_SEQ).batch_at(0)
+    batch = {k: torch.from_numpy(a).cuda() for k, a in toks.items()}
+    vg(params, batch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    t0 = time.time()
+    loss, grads = vg(params, batch)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    counts = _no_launches(label)
+    if not (torch.isfinite(loss) and all(torch.isfinite(g).all() for g in tree_leaves(grads))):
+        raise AssertionError(f"{label}: non-finite loss or gradients")
+    out = {"ms": ms, "loss": loss.item(), "base_gib": base / 2**30, "counts": counts,
+           "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+    log(f"[state] {model.cfg.name} {label}, batch {RG_BATCH} x seq {RG_SEQ}: loss "
+        f"{out['loss']:.6f}, {ms:.1f} ms per value-and-grad call (after one warm-up call), "
+        f"peak allocated {out['peak_gib']:.2f} GiB above the {out['base_gib']:.2f} GiB "
+        f"baseline; launches {counts}")
+    return out
+
+
+def _rg_inference(cfg) -> dict:
+    """Model.prefill of RG_PROMPT tokens into RG_MAX_LEN, then
+    RG_DECODE_STEPS greedy decode_steps through the windowed ring (RG_MAX_LEN
+    rows, above the window); every decode logit row held to Model.forward of
+    the same tokens within LOGIT_REL_BOUND (max abs err / max |logit|)."""
+    model = build_model(cfg)
+    # the bf16 path casts every weight to bf16 at each use, so holding them
+    # in bf16 gives the same numbers in half the memory
+    params = tree_map(lambda a: a.to(torch.bfloat16), model.init(seed=0))
+    b, n = RG_PROMPT
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (b, n), generator=gen, device="cuda")
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        logits, caches = model.prefill(params, {"tokens": toks}, RG_MAX_LEN)
+        torch.cuda.synchronize()
+        prefill_ms = (time.time() - t0) * 1e3
+        ring_rows = caches[0][1][0].shape[2]
+        out, nxt, times = [logits[:, -1]], [], []
+        for i in range(RG_DECODE_STEPS):
+            nxt.append(out[-1].argmax(-1))
+            t0 = time.time()
+            step, caches = model.decode_step(params, caches, {"tokens": nxt[-1][:, None]}, n + i)
+            torch.cuda.synchronize()
+            times.append((time.time() - t0) * 1e3)
+            out.append(step[:, -1])
+        counts = _no_launches(f"{cfg.name} inference")
+        full = model.forward(params, {"tokens": torch.cat([toks, torch.stack(nxt, 1)], 1)})
+    worst = 0.0
+    for i, a in enumerate(out):
+        if not torch.isfinite(a).all() or a.shape != (b, cfg.vocab_size):
+            raise AssertionError(f"{cfg.name} step {i}: non-finite or misshapen logits")
+        want = full[:, n - 1 + i]
+        for r in range(b):
+            worst = max(worst, ((a[r] - want[r]).abs().max() / want[r].abs().max()).item())
+    flips = sum(int((a.argmax(-1) != full[:, n - 1 + i].argmax(-1)).sum())
+                for i, a in enumerate(out))
+    log(f"[state] {_card()}; {cfg.name} inference, prefill {b} x {n} into {RG_MAX_LEN} "
+        f"(KV ring of {ring_rows} rows, window {cfg.window}) then {RG_DECODE_STEPS} greedy "
+        f"decode steps through the ring, against Model.forward of the same {n + RG_DECODE_STEPS}"
+        f" tokens: max abs logit err / max |logit| per row, worst {worst:.3g} over "
+        f"{b * len(out)} rows (bound {LOGIT_REL_BOUND}); argmax differs at {flips}; prefill "
+        f"{prefill_ms:.1f} ms, decode step median {statistics.median(times):.2f} ms; "
+        f"launches {counts}")
+    if ring_rows != RG_MAX_LEN or worst > LOGIT_REL_BOUND:
+        raise AssertionError(f"{cfg.name} inference: the decode does not continue the forward "
+                             f"({worst:.3g}) or the ring has {ring_rows} rows")
+    del params, caches, full
+    return counts
+
+
+def phase_state() -> dict:
+    """The state-carrying families at full width.  mamba2-2.7b (MAMBA_LAYERS
+    layers): parity in bf16 against f32 under gspmd and the pipelined step
+    (contiguous and interleaved V 2), two gspmd calls bit-equal, then
+    TRAIN_STEPS gspmd and PIPE_STEPS contiguous steps through launch.train.
+    recurrentgemma-9b (RG_LAYERS layers, the tail a post-group): parity at
+    batch 1 x RG_SEQ, the gspmd and contiguous value-and-grad calls timed at
+    RG_BATCH x RG_SEQ, then prefill and the ring decode against the forward.
+    Neither family reaches the kernels: every count must stay 0.  Returns
+    the counts of its main runs."""
+    cfg = _mamba2()
+    get_config_full = train_launch.get_config
+    train_launch.get_config = lambda arch, smoke: get_config_full(arch, smoke).replace(
+        n_layers=MAMBA_LAYERS)
+    counts, runs = {}, {}
+    try:
+        torch.cuda.empty_cache()
+        parity = {f"contiguous, K {PIPE_RANKS}, M {PIPE_SLICES}": TeraPipeConfig(
+            n_token_slices=PIPE_SLICES),
+            f"interleaved V 2, K {PIPE_RANKS}, M {PIPE_SLICES}": TeraPipeConfig(
+            n_token_slices=PIPE_SLICES, virtual_stages=2)}
+        n_params = _check_train_against_plain(cfg, parity, route="bf16")
+        log(f"[state] {cfg.name} FULL width, {MAMBA_LAYERS} of 64 layers: "
+            f"{n_params / 1e9:.3f} B parameters (the plain bf16 run is the gspmd step)")
+        torch.cuda.empty_cache()
+        _repeats(cfg, "state")
+        torch.cuda.empty_cache()
+        argv = [a if a != "gpt3-1b" else "mamba2-2.7b" for a in TRAIN_ARGV]
+        counts["mamba2 gspmd"], runs["gspmd"] = _train_run(cfg, argv, "state gspmd", {})
+        torch.cuda.empty_cache()
+        counts["mamba2 contiguous"], runs["contiguous"] = _train_run(
+            cfg, argv + ["--mode", "terapipe", "--token-slices", str(PIPE_SLICES)],
+            "state contiguous", {}, steps=PIPE_STEPS)
+        torch.cuda.empty_cache()
+    finally:
+        train_launch.get_config = get_config_full
+    log(f"[state] {_card()}; {cfg.name} FULL width, {MAMBA_LAYERS} layers, batch {TRAIN_BATCH}"
+        f" x seq {TRAIN_SEQ}: " + "; ".join(
+            f"{s} {m['step_ms']:.1f} ms/step, {m['tok_s']:.0f} tok/s, peak "
+            f"{m['peak_gib'] - m['base_gib']:.2f} GiB above the {m['base_gib']:.2f} GiB "
+            f"baseline, launches per step 0" for s, m in runs.items()))
+
+    cfg = _recurrentgemma()
+    torch.cuda.empty_cache()
+    contiguous = TeraPipeConfig(n_token_slices=PIPE_SLICES)
+    n_params = _check_train_against_plain(
+        cfg, {f"contiguous, K {PIPE_RANKS}, M {PIPE_SLICES}, tail as post-group": contiguous},
+        seq=RG_SEQ, route="bf16")
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    plan = make_terapipe_value_and_grad(model, contiguous, RG_SEQ, RG_BATCH, PIPE_RANKS).plan
+    if [g.name for g in plan.post] != ["tail"] or plan.main.name != "super":
+        raise AssertionError(f"{cfg.name}: pipeline split {plan.pre}, {plan.main.name}, "
+                             f"{[g.name for g in plan.post]}")
+    del plan
+    gspmd = _timed_vg(model, lambda m: value_and_grad(m.loss), "gspmd")
+    torch.cuda.empty_cache()
+    piped = _timed_vg(model, lambda m: make_terapipe_value_and_grad(
+        m, contiguous, RG_SEQ, RG_BATCH, PIPE_RANKS),
+        f"contiguous K {PIPE_RANKS}, M {PIPE_SLICES}, tail as post-group")
+    torch.cuda.empty_cache()
+    rel_loss = abs(piped["loss"] - gspmd["loss"]) / abs(gspmd["loss"])
+    counts["recurrentgemma gspmd"] = gspmd["counts"]
+    counts["recurrentgemma contiguous"] = piped["counts"]
+    counts["recurrentgemma inference"] = _rg_inference(cfg)
+    torch.cuda.empty_cache()
+    log(f"[state] {_card()}; {cfg.name} FULL width, {RG_LAYERS} of 38 layers "
+        f"({n_params / 1e9:.3f} B parameters), batch {RG_BATCH} x seq {RG_SEQ}: gspmd "
+        f"{gspmd['ms']:.1f} ms per value-and-grad call, peak {gspmd['peak_gib']:.2f} GiB; "
+        f"contiguous {piped['ms']:.1f} ms, peak {piped['peak_gib']:.2f} GiB; losses relative "
+        f"{rel_loss:.3g} (bound {LOSS_REL_BOUND}); no AdamW steps (7 f32 copies of "
+        f"{n_params / 1e9:.3f} B parameters would be {7 * 4 * n_params / 1e9:.0f} GB)")
+    if rel_loss > LOSS_REL_BOUND:
+        raise AssertionError(f"{cfg.name}: pipelined loss off the gspmd loss ({rel_loss:.3g})")
+    return counts
+
+
+# --------------------------------------------------------------- 9. times
 def phase_times(errs: dict, launches: dict) -> list:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1803,11 +2022,11 @@ def phase_times(errs: dict, launches: dict) -> list:
     return rows
 
 
-# ------------------------------------------------------------ 9. profiles
+# ----------------------------------------------------------- 10. profiles
 def phase_profiles() -> None:
     """One gspmd step and two pipelined steps (M = PIPE_SLICES, contiguous
-    and 1f1b) of gpt3-1b and one gspmd step of deepseek-moe-16b (phase 7's
-    depth) under torch.profiler, last: after a profiled region the host's eager launches
+    and 1f1b) of gpt3-1b and one gspmd step each of deepseek-moe-16b (phase
+    7's depth) and mamba2-2.7b (phase 8's) under torch.profiler, last: after a profiled region the host's eager launches
     run slower for the rest of the process, which a host-bound run (the
     pipelined step, the stage sweep) shows in its times, so every timed
     eager run comes before it."""
@@ -1823,6 +2042,8 @@ def phase_profiles() -> None:
         torch.cuda.empty_cache()
     _profile_step(_deepseek().replace(use_kernel=True),
                   lambda model: value_and_grad(model.loss), "gspmd")
+    torch.cuda.empty_cache()
+    _profile_step(_mamba2(), lambda model: value_and_grad(model.loss), "gspmd")
     torch.cuda.empty_cache()
 
 
@@ -1852,6 +2073,8 @@ def main() -> int:
     done("restart")
     paths.update(phase_moe())
     done("moe")
+    paths.update(phase_state())
+    done("state")
     launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in COUNTERS}
     log(f"[launches] main paths: {paths}")
     rows = phase_times(errs, launches)

@@ -16,9 +16,11 @@ ARCHS = [
 ]
 PAPER_ARCHS = ["gpt3-1b", "gpt3-13b", "gpt3-44b", "gpt3-175b"]
 
-_PORTED = {"qwen3-0.6b": "qwen3_0_6b", "qwen3-moe-235b-a22b": "qwen3_moe",
-           "deepseek-moe-16b": "deepseek_moe", "gpt3-1b": "gpt3", "gpt3-13b": "gpt3",
-           "gpt3-44b": "gpt3", "gpt3-175b": "gpt3"}
+_PORTED = {"phi3-mini-3.8b": "phi3_mini", "qwen3-0.6b": "qwen3_0_6b",
+           "phi4-mini-3.8b": "phi4_mini", "stablelm-12b": "stablelm_12b",
+           "qwen3-moe-235b-a22b": "qwen3_moe", "deepseek-moe-16b": "deepseek_moe",
+           "mamba2-2.7b": "mamba2", "recurrentgemma-9b": "recurrentgemma",
+           "gpt3-1b": "gpt3", "gpt3-13b": "gpt3", "gpt3-44b": "gpt3", "gpt3-175b": "gpt3"}
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:

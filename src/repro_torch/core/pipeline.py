@@ -10,9 +10,12 @@ The paper's execution model (§3.2), as the reference runs it:
 * a minibatch is cut into D microbatches × M token slices; work item
   ``i = d·M + m`` enters stage 0 at its tick and flows down the ranks, one
   ring shift per tick;
-* each (rank, chunk) keeps a KV cache per layer of the prefix of the
+* each (rank, chunk) keeps a cache per layer of the prefix of the
   current microbatch it has already processed, so slice m attends at
-  context offset ``ctx = l_0 + … + l_{m-1}`` (the paper's t_fwd(l, ctx)).
+  context offset ``ctx = l_0 + … + l_{m-1}`` (the paper's t_fwd(l, ctx)):
+  a KV cache, or for the state families (mamba2, the hybrid's rec blocks)
+  the recurrent state the slice carries on, reset with every microbatch.
+  Such families need uniform slices, as in the reference.
 
 Which unit runs where and when comes from the schedule IR
 (``core/schedules``): a Python tick loop reads each rank's
@@ -66,6 +69,11 @@ What differs from the reference, and why the result does not:
   later unit of the microbatch changes below ``ctx + l``.  Each microbatch
   gets new cache tensors at its first slice, since under 1F1B the next
   microbatch starts on a rank before this one's backward ends there.
+* **Groups around the pipeline.** Pre-groups (DeepSeek's ``dense0``) run
+  on the whole sequence before it, post-groups (RecurrentGemma's ``tail``)
+  after it on the reassembled sequence, before the head; the explicit-
+  backward schedules take the loss at the last stage, so they refuse
+  post-groups, and, as the reference's, every family but dense and moe.
 """
 from __future__ import annotations
 
@@ -168,16 +176,23 @@ class _ResidualStore:
 
 def _group_split(model: Model) -> Tuple[List[BlockGroup], BlockGroup, List[BlockGroup]]:
     """``(pre_groups, main_group, post_groups)`` (reference ``_group_split``,
-    ``:173-189``): only the main group, the last (homogeneous) one, is
-    pipelined; the small pre-groups (DeepSeek's dense first layer) run
-    before it on the whole sequence.  The hybrid family's post-groups and
-    the enc-dec family are not yet ported (ROADMAP Queue 1 item 8)."""
+    ``:173-189``): only the main (homogeneous) group is pipelined; the
+    small pre-groups (DeepSeek's dense first layer) run before it on the
+    whole sequence, the post-groups (RecurrentGemma's rec tail) after it.
+    The enc-dec family is not token-sliceable and raises."""
     gs = model.groups
-    if model.cfg.family in ("dense", "moe"):     # [blocks] | [dense0?, moe]
+    family = model.cfg.family
+    if family == "encdec":
+        raise NotImplementedError(
+            "enc-dec archs: the bidirectional encoder is not token-sliceable (paper "
+            "footnote 1); pipeline the decoder via the generic path or use GSPMD mode")
+    if len(gs) == 1:
+        return [], gs[0], []
+    if family == "moe":                # [dense0?, moe]
         return list(gs[:-1]), gs[-1], []
-    raise NotImplementedError(
-        f"family {model.cfg.family!r}: the pipeline runs the dense and moe families "
-        f"(post-groups and the enc-dec split: ROADMAP Queue 1 item 8)")
+    if family == "hybrid":             # [super, tail?]
+        return [], gs[0], list(gs[1:])
+    raise NotImplementedError(family)
 
 
 class _Plan:
@@ -206,6 +221,9 @@ class _Plan:
         if tcfg.slice_lens is not None:
             slice_lens = tuple(int(s) for s in tcfg.slice_lens)
             assert sum(slice_lens) == L and min(slice_lens) >= 1, (slice_lens, L)
+            if len(set(slice_lens)) > 1 and model.cfg.family not in ("dense", "vlm", "moe"):
+                raise ValueError("non-uniform slices need prefix-overwrite semantics (KV "
+                                 "caches); state-based families require uniform slices")
         else:
             M = tcfg.n_token_slices
             assert L % M == 0, (L, M)
@@ -253,13 +271,15 @@ class _Plan:
         layers = [tree_map(leaf, layer) for layer in _unstack(main_params)]
         return {kv: layers[lo:hi] for kv, (lo, hi) in self.rows.items()}
 
-    def fresh_caches(self, n_layers: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-        """New zero (k, v) caches of ``n_layers`` layers for one microbatch."""
-        cfg = self.cfg
-        shape = (self.mb, self.L, cfg.n_kv_heads, cfg.hd)
-        zeros = lambda: torch.zeros(shape, dtype=self.tcfg.cache_dtype,
-                                    device=self.model.device)
-        return [(zeros(), zeros()) for _ in range(n_layers)]
+    def fresh_caches(self, n_layers: int) -> list:
+        """New zero caches of ``n_layers`` layers of the main group for one
+        microbatch, one cache tree per layer, each the only row of the
+        group's own ``init_cache``: KV caches in ``tcfg.cache_dtype``,
+        recurrent states in float32.  Each layer gets storage of its own:
+        the out-of-place write of a row of a shared stack
+        (``torch.slice_scatter`` of a view) allocates the whole stack."""
+        return [tree_map(lambda a: a[0], self.main.init_cache(
+            self.mb, self.L, self.tcfg.cache_dtype, layers=1)) for _ in range(n_layers)]
 
     def stage_apply(self, layers, x, caches, ctx: int, remat: bool = False):
         """One chunk's forward of one slice at offset ``ctx``: its blocks in
@@ -346,8 +366,9 @@ def _run_forward(p: _Plan, params, x_emb: torch.Tensor):
 
 def _make_loss_from_plan(p: _Plan) -> Callable:
     """Differentiable loss over the tick loop: reassemble the last stage's
-    per-item outputs into ``(B, L, d)`` and run the head and the chunked
-    loss on it, as the reference's ``_make_loss_from_plan`` does."""
+    per-item outputs into ``(B, L, d)``, run the post-groups on it (each
+    layer under checkpoint when ``cfg.remat``), then the head and the
+    chunked loss, as the reference's ``_make_loss_from_plan`` does."""
     if p.assign.has_backward:
         raise ValueError(f"schedule {p.sched!r} computes the loss and its gradients in one "
                          f"pass; build it with make_terapipe_value_and_grad")
@@ -356,6 +377,8 @@ def _make_loss_from_plan(p: _Plan) -> Callable:
         outs, _ = _run_forward(p, params, p.prefix(params, batch))
         x_final = torch.cat([torch.cat(outs[d * p.M:(d + 1) * p.M], dim=1)
                              for d in range(p.D)], dim=0)
+        for g in p.post:
+            x_final = _scan_full(g, params["groups"][g.name], x_final, p.cfg.remat, p.cfg)
         return p.model.head_loss(params, x_final, batch["labels"])
 
     return loss_fn
@@ -367,8 +390,12 @@ def _make_explicit_value_and_grad(p: _Plan) -> Callable:
     ``_make_pipeline_body``, ``:602-713``): one tick loop computes the loss
     and every gradient; the embedding's and the pre-groups' come from one
     autograd pass over the prologue at the end."""
-    assert not p.post, ("explicit-backward schedules need the head and loss at the last "
-                        "stage; post-pipeline groups are not token-local")
+    if p.post:
+        raise ValueError("explicit-backward schedules need the head and loss at the last "
+                         "stage; post-pipeline groups are not token-local")
+    if p.cfg.family not in ("dense", "moe"):
+        raise ValueError(f"schedule={p.sched!r} supports dense/moe families (per-slice LM "
+                         f"loss at the last stage); got {p.cfg.family}")
     tied = p.cfg.tie_embeddings
     spread = p.assign.residual_spread(p.DM)
     inv_total = 1.0 / float(p.B * p.L)
@@ -517,11 +544,12 @@ def make_terapipe_loss(model: Model, tcfg: TeraPipeConfig, seq_len: int,
 
 def make_terapipe_caches_fn(model: Model, tcfg: TeraPipeConfig, seq_len: int,
                             global_batch: int, n_ranks: int) -> Callable:
-    """Debug/testing: ``(params, batch) -> (k, v)`` final caches of the
-    same tick loop under a forward-only schedule, each ``(n_layers, B/D, L,
-    Hkv, hd)`` in layer order (global stage ``s = v·K + k``, the layout of
-    ``model.init_caches``), run without autograd.  With
-    ``tcfg.extra_ticks`` appended the result must be bit-identical."""
+    """Debug/testing: ``(params, batch) ->`` the main group's final caches
+    of the same tick loop under a forward-only schedule, each leaf stacked
+    ``(n_layers, B/D, ...)`` in layer order (global stage ``s = v·K + k``,
+    the layout of ``model.init_caches``: ``(k, v)`` for the dense family),
+    run without autograd.  With ``tcfg.extra_ticks`` appended the result
+    must be bit-identical."""
     p = _Plan(model, tcfg, seq_len, global_batch, n_ranks)
     assert not p.assign.has_backward, "forward-only schedules expose the caches"
 
@@ -530,7 +558,7 @@ def make_terapipe_caches_fn(model: Model, tcfg: TeraPipeConfig, seq_len: int,
         _, caches = _run_forward(p, params, p.prefix(params, batch))
         stages = range(p.K * p.V)
         layers = [c for s in stages for c in caches[s % p.K, s // p.K]]
-        return (torch.stack([k for k, _ in layers]), torch.stack([v for _, v in layers]))
+        return tree_map(lambda *rows: torch.stack(rows), *layers)
 
     return caches_fn
 

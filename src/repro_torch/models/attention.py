@@ -6,8 +6,19 @@ over [prefix KV cache ++ this slice]: prefill chunks), ``sliced_dyn`` (a
 slice at an offset that is data, attending over the cache rows up to the
 slice's end with an absolute-position mask: the pipeline executor's op) and ``decode`` (one
 new token per row against a fixed-capacity cache, at a scalar or a per-row
-position).  Windowed and bidirectional attention, the ring cache and
-cross-attention arrive with the family slices.
+position).  Each mode takes a ``window`` (sliding-window attention: the
+hybrid family's third block), and ``decode`` a ring cache (``ring``: slot
+``pos % L_max``).  Bidirectional attention and cross-attention arrive with
+the enc-dec family.  The kernels compute unwindowed attention, so a windowed
+call takes the plain route whatever ``cfg.use_kernel`` says, as in the
+reference.
+
+The ring decode keeps the reference's stated contract, that prefill then
+decode continues the forward, where the reference does not: its ring mask
+(``repro/models/attention.py:255-260``) keeps every written slot, which is
+the window only when the cache is exactly ``window`` long, but ``prefill``
+builds caches of ``max_len``.  Here the mask also drops slots ``window`` or
+more positions behind (ROADMAP Queue 3).
 
 ``sliced`` and ``decode`` update their caches IN PLACE: the reference
 returns new arrays, but every serving caller owns the dense cache it passes
@@ -25,7 +36,7 @@ import torch
 from repro_torch.kernels import ops as kops
 
 from .common import (ModelConfig, apply_rope, attention_scores, attention_scores_gqa,
-                     causal_mask, dense_init, repeat_kv, rms_norm)
+                     causal_mask, dense_init, local_causal_mask, repeat_kv, rms_norm)
 
 
 def init_attn(gen: torch.Generator, cfg: ModelConfig):
@@ -64,14 +75,14 @@ _BLOCKED_THRESHOLD = 2048   # above this seq len, use the q-chunked softmax path
 _Q_CHUNK = 1024
 
 
-def attention_blocked(q, k, v, *, q_offset: int = 0,
-                      q_chunk: int = _Q_CHUNK) -> torch.Tensor:
+def attention_blocked(q, k, v, *, q_offset: int = 0, q_chunk: int = _Q_CHUNK,
+                      window: int = 0) -> torch.Tensor:
     """Causal attention without materializing the full (Sq, Sk) score matrix.
 
     A loop over query chunks; the chunk at absolute offset ``o`` only reads
-    keys[: o + qc] (exact causal FLOPs).  q: (B, Sq, H, hd); k/v:
-    (B, Sk, H, hd), already GQA-repeated.  (The reference's windowed variant
-    arrives with the hybrid family.)
+    keys[: o + qc] (exact causal FLOPs), and with a ``window`` only from
+    key ``o - window + 1`` on.  q: (B, Sq, H, hd); k/v: (B, Sk, H, hd),
+    already GQA-repeated.
     """
     sq = q.shape[1]
     outs = []
@@ -79,8 +90,13 @@ def attention_blocked(q, k, v, *, q_offset: int = 0,
         qc = min(q_chunk, sq - start)
         off = q_offset + start
         k_end = min(off + qc, k.shape[1])
-        mask = causal_mask(qc, k_end, q_offset=off, device=q.device)
-        outs.append(attention_scores(q[:, start:start + qc], k[:, :k_end], v[:, :k_end],
+        lo = max(0, off - window + 1) if window else 0
+        if window:
+            mask = local_causal_mask(qc, k_end - lo, window, q_offset=off - lo,
+                                     device=q.device)
+        else:
+            mask = causal_mask(qc, k_end, q_offset=off, device=q.device)
+        outs.append(attention_scores(q[:, start:start + qc], k[:, lo:k_end], v[:, lo:k_end],
                                      mask=mask))
     return torch.cat(outs, dim=1)
 
@@ -102,19 +118,20 @@ def _write_rows(cache: torch.Tensor, x: torch.Tensor, start: int) -> torch.Tenso
 def attn_full(p, cfg: ModelConfig, x: torch.Tensor, *, causal: bool = True,
               window: int = 0) -> torch.Tensor:
     """(B, S, D) -> (B, S, D).  Causal self-attention over the whole
-    sequence (the training forward)."""
-    if window:
-        raise NotImplementedError("windowed attention: not yet ported (hybrid family)")
+    sequence (the training forward), within ``window`` tokens if set."""
     if not causal:
         raise NotImplementedError("bidirectional attention: not yet ported (enc-dec family)")
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions, rope=cfg.rope_theta > 0)
-    if cfg.use_kernel:
+    if cfg.use_kernel and window == 0:
         out = kops.terapipe_attention(q, k, v, ctx_len=0)
     elif s > _BLOCKED_THRESHOLD:
         rep = q.shape[2] // k.shape[2]
-        out = attention_blocked(q, repeat_kv(k, rep), repeat_kv(v, rep))
+        out = attention_blocked(q, repeat_kv(k, rep), repeat_kv(v, rep), window=window)
+    elif window:
+        out = attention_scores_gqa(q, k, v, mask=local_causal_mask(s, s, window,
+                                                                   device=x.device)[None])
     else:
         out = attention_scores_gqa(q, k, v, mask=causal_mask(s, s, device=x.device)[None])
     return _out_proj(p, cfg, out, b, s, x.dtype)
@@ -128,8 +145,6 @@ def attn_sliced(p, cfg: ModelConfig, x_slice: torch.Tensor, kv_cache, ctx_len: i
     kv_cache: (k, v) each (B, L_max, kv_heads, hd) — prefix written in [0, ctx_len)
     Returns (out_slice, kv_cache) with the slice's K/V written at ctx_len.
     """
-    if window:
-        raise NotImplementedError("windowed attention arrives with the hybrid family")
     b, l, _ = x_slice.shape
     positions = (torch.arange(l, device=x_slice.device) + ctx_len)[None, :]
     q, k, v = _project_qkv(p, cfg, x_slice, positions, rope=cfg.rope_theta > 0)
@@ -140,8 +155,13 @@ def attn_sliced(p, cfg: ModelConfig, x_slice: torch.Tensor, kv_cache, ctx_len: i
     v_all = cv[:, :ctx_len + l].to(q.dtype)
     if cfg.use_kernel and window == 0:
         out = kops.terapipe_attention(q, k_all, v_all, ctx_len=ctx_len)
+    elif l > _BLOCKED_THRESHOLD:
+        rep = q.shape[2] // k_all.shape[2]
+        out = attention_blocked(q, repeat_kv(k_all, rep), repeat_kv(v_all, rep),
+                                q_offset=ctx_len, window=window)
     else:
-        mask = causal_mask(l, ctx_len + l, q_offset=ctx_len, device=q.device)
+        mask = (local_causal_mask(l, ctx_len + l, window, q_offset=ctx_len, device=q.device)
+                if window else causal_mask(l, ctx_len + l, q_offset=ctx_len, device=q.device))
         out = attention_scores_gqa(q, k_all, v_all, mask=mask[None])
     return _out_proj(p, cfg, out, b, l, x_slice.dtype), (ck, cv)
 
@@ -153,14 +173,13 @@ def attn_sliced_dyn(p, cfg: ModelConfig, x_slice: torch.Tensor, kv_cache, ctx,
 
     ``ctx`` is a python int or a 0-d tensor (read once on the host).  The
     slice's K/V are written at ``ctx``; the slice attends over the cache
-    rows ``[0, ctx + l)`` with an absolute-position causal mask.  The
-    reference attends over the whole cache and masks the rows past ctx + l
-    (stale or unwritten); with ``ctx`` on the host the port hands the
-    attention only the rows it reads, which gives the same result, and no
-    dK/dV work or zero tiles for the unused tail.
+    rows ``[0, ctx + l)`` with an absolute-position causal mask (from row
+    ``ctx - window + 1`` on with a ``window``).  The reference attends over
+    the whole cache and masks the rows outside (stale, unwritten or out of
+    the window); with ``ctx`` on the host the port hands the attention only
+    the rows it reads, which gives the same result, and no dK/dV work or
+    zero tiles for the unused rows.
     """
-    if window:
-        raise NotImplementedError("windowed attention: not yet ported (hybrid family)")
     b, l, _ = x_slice.shape
     ctx = int(ctx)
     positions = (torch.arange(l, device=x_slice.device) + ctx)[None, :]
@@ -168,10 +187,14 @@ def attn_sliced_dyn(p, cfg: ModelConfig, x_slice: torch.Tensor, kv_cache, ctx,
     ck, cv = kv_cache
     ck = _write_rows(ck, k, ctx)
     cv = _write_rows(cv, v, ctx)
-    k_all = ck[:, :ctx + l].to(q.dtype)
-    v_all = cv[:, :ctx + l].to(q.dtype)
-    if cfg.use_kernel:
+    lo = max(0, ctx - window + 1) if window else 0
+    k_all = ck[:, lo:ctx + l].to(q.dtype)
+    v_all = cv[:, lo:ctx + l].to(q.dtype)
+    if cfg.use_kernel and window == 0:
         out = kops.terapipe_attention(q, k_all, v_all, ctx_len=ctx)
+    elif window:
+        mask = local_causal_mask(l, ctx + l - lo, window, q_offset=ctx - lo, device=q.device)
+        out = attention_scores_gqa(q, k_all, v_all, mask=mask[None])
     else:
         mask = causal_mask(l, ctx + l, q_offset=ctx, device=q.device)
         out = attention_scores_gqa(q, k_all, v_all, mask=mask[None])
@@ -179,43 +202,59 @@ def attn_sliced_dyn(p, cfg: ModelConfig, x_slice: torch.Tensor, kv_cache, ctx,
 
 
 def attn_decode(p, cfg: ModelConfig, x_tok: torch.Tensor, kv_cache, pos,
-                *, window: int = 0):
+                *, window: int = 0, ring: bool = False):
     """One-token decode.  x_tok (B, 1, D); ``pos`` a python int or 0-d
     tensor (current position) OR a per-row (B,) tensor — a continuous-
     batching round where every slot sits at its own context depth.
 
     kv_cache: (k, v) each (B, L_max, kv_heads, hd).
+    ring=True: the cache is a ring buffer indexed by ``pos % L_max``
+    (bounded memory for local-attention archs at 500k+ context); the token
+    attends over the slots that hold one of the last ``window`` positions,
+    whatever ``L_max`` is.
     """
-    if window:
-        raise NotImplementedError("windowed attention arrives with the hybrid family")
     b = x_tok.shape[0]
     pos_t = torch.as_tensor(pos, device=x_tok.device)
     if pos_t.dim() > 0:
         return _attn_decode_batched(p, cfg, x_tok, kv_cache, pos_t.long(),
-                                    window=window)
+                                    window=window, ring=ring)
     pos = int(pos_t)
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x_tok.device)
     q, k, v = _project_qkv(p, cfg, x_tok, positions, rope=cfg.rope_theta > 0)
     ck, cv = kv_cache
     lmax = ck.shape[1]
-    ck[:, pos] = k[:, 0].to(ck.dtype)
-    cv[:, pos] = v[:, 0].to(cv.dtype)
-    if cfg.use_kernel and window == 0:
+    slot = pos % lmax if ring else pos
+    ck[:, slot] = k[:, 0].to(ck.dtype)
+    cv[:, slot] = v[:, 0].to(cv.dtype)
+    kp = torch.arange(lmax, device=x_tok.device)[None, :]
+    if ring:
+        # slot i holds absolute position p_i = pos - ((pos - i) mod L_max)
+        abs_pos = pos - torch.remainder(pos - kp, lmax)
+        valid = abs_pos >= 0
+        if window:
+            valid &= abs_pos > pos - window
+        out = attention_scores_gqa(q, ck.to(q.dtype), cv.to(q.dtype),
+                                   mask=valid[None])              # (1, 1, Lmax)
+    elif cfg.use_kernel and window == 0:
         out = kops.decode_attention(q, ck.to(q.dtype), cv.to(q.dtype), pos + 1)
     else:
-        valid = torch.arange(lmax, device=x_tok.device)[None, :] <= pos
+        valid = kp <= pos
+        if window:
+            valid &= kp > pos - window
         out = attention_scores_gqa(q, ck.to(q.dtype), cv.to(q.dtype),
                                    mask=valid[None])              # (1, 1, Lmax)
     return _out_proj(p, cfg, out, b, 1, x_tok.dtype), (ck, cv)
 
 
 def _attn_decode_batched(p, cfg: ModelConfig, x_tok: torch.Tensor, kv_cache,
-                         pos: torch.Tensor, *, window: int = 0):
+                         pos: torch.Tensor, *, window: int = 0, ring: bool = False):
     """attn_decode with a per-row (B,) position vector: each slot writes its
     token at its OWN cache depth and attends over its own valid prefix.
     Every op is row-independent, so slot b's output depends only on slot
     b's inputs — the bit-identity the serving engine's continuous-vs-
     sequential contract rests on."""
+    if ring:
+        raise ValueError("ring caches decode a single stream (scalar pos)")
     b = x_tok.shape[0]
     positions = pos[:, None]                                   # (B, 1)
     q, k, v = _project_qkv(p, cfg, x_tok, positions, rope=cfg.rope_theta > 0)
@@ -227,7 +266,10 @@ def _attn_decode_batched(p, cfg: ModelConfig, x_tok: torch.Tensor, kv_cache,
     if cfg.use_kernel and window == 0:
         out = kops.decode_attention(q, ck.to(q.dtype), cv.to(q.dtype), pos + 1)
     else:
-        valid = torch.arange(lmax, device=x_tok.device)[None, :] <= positions
+        kp = torch.arange(lmax, device=x_tok.device)[None, :]
+        valid = kp <= positions                                # (B, Lmax)
+        if window:
+            valid &= kp > positions - window
         out = attention_scores_gqa(q, ck.to(q.dtype), cv.to(q.dtype),
                                    mask=valid[:, None, :])     # (B, 1, Lmax)
     return _out_proj(p, cfg, out, b, 1, x_tok.dtype), (ck, cv)

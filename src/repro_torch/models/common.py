@@ -176,3 +176,12 @@ def causal_mask(sq: int, sk: int, q_offset: int = 0, device=None) -> torch.Tenso
     qp = torch.arange(sq, device=device)[:, None] + q_offset
     kp = torch.arange(sk, device=device)[None, :]
     return qp >= kp
+
+
+def local_causal_mask(sq: int, sk: int, window: int, q_offset: int = 0,
+                      device=None) -> torch.Tensor:
+    """:func:`causal_mask` that also drops keys ``window`` or more
+    positions behind the query (sliding-window attention)."""
+    qp = torch.arange(sq, device=device)[:, None] + q_offset
+    kp = torch.arange(sk, device=device)[None, :]
+    return (qp >= kp) & (qp - kp < window)

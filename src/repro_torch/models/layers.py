@@ -61,9 +61,9 @@ def dense_block_sliced_dyn(p, cfg: ModelConfig, x: torch.Tensor, kv_cache, ctx,
 
 
 def dense_block_decode(p, cfg: ModelConfig, x: torch.Tensor, kv_cache, pos,
-                       *, window: int = 0):
+                       *, window: int = 0, ring: bool = False):
     a, kv_cache = attn_mod.attn_decode(p["attn"], cfg, rms_norm(x, p["ln_attn"]),
-                                       kv_cache, pos, window=window)
+                                       kv_cache, pos, window=window, ring=ring)
     x = x + a
     x = x + ffn(p["ffn"], rms_norm(x, p["ln_ffn"]))
     return x, kv_cache

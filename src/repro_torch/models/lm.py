@@ -1,5 +1,5 @@
-"""Model assembly, the dense and MoE decoder families (reference:
-``repro/models/lm.py``).
+"""Model assembly, the dense, MoE, SSM and hybrid decoder families
+(reference: ``repro/models/lm.py``).
 
 A model is a stack of *block groups*: homogeneous runs of layers whose
 per-layer parameters are stacked on a leading axis (``_stack_init``).  The
@@ -8,26 +8,39 @@ index here; there is no ``jit`` — the port runs eagerly.  ``jax.checkpoint``
 is ``torch.utils.checkpoint`` (non-reentrant): under ``cfg.remat`` each
 layer keeps only its input for the backward pass and recomputes the rest.
 
-Ported: the dense and MoE groups' ``full``, ``sliced``, ``sliced_dyn`` and
-``decode`` modes, and the group lists of both families
+Ported: the dense, MoE, SSM (mamba2), RG-LRU and hybrid super-block
+(rec, rec, windowed attn) groups' ``full``, ``sliced``, ``sliced_dyn`` and
+``decode`` modes, and the group lists of those families
 (``_dense_like_groups``: DeepSeek's first dense layer ``dense0`` before the
-``moe`` group); the training surface (``forward``, ``loss``,
-``head_loss``, ``chunked_xent``) and the serving surface (``init``,
-``embed``, ``head``, ``init_caches``, ``prefill``, ``decode_step``) of
-``build_model``.  The other families arrive with later slices.
+``moe`` group; RecurrentGemma's ``super`` blocks, then the ``tail`` of rec
+blocks); the training surface (``forward``, ``loss``, ``head_loss``,
+``chunked_xent``) and the serving surface (``init``, ``embed``, ``head``,
+``init_caches``, ``prefill``, ``decode_step``) of ``build_model``.  The
+vlm and enc-dec families arrive with later slices.
+
+A group's cache is a tree of tensors stacked on a leading layer axis: the
+``(k, v)`` KV cache, the ``(conv, ssm)`` or ``(conv, h)`` recurrent state
+(float32 whatever the activation dtype), or the super-block's
+``((rec_conv, rec_h), (k, v))``.  The SSM and rec groups have no separate
+``sliced_dyn``: ``ctx`` is unused there, so it is ``sliced`` (the
+reference's executor falls back to ``sliced`` the same way).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 from . import attention as attn_mod
 from . import layers as layers_mod
 from . import moe as moe_mod
+from . import rglru as rglru_mod
+from . import ssm as ssm_mod
 from .common import ModelConfig, embed_init, rms_norm
 
 Params = Dict[str, Any]
@@ -39,7 +52,7 @@ class BlockGroup(NamedTuple):
     full: Callable       # (bp, x) -> x
     sliced: Callable     # (bp, x, cache, ctx:int) -> (x, cache)
     decode: Callable     # (bp, x, cache, pos) -> (x, cache)
-    init_cache: Callable # (batch, max_len, dtype) -> stacked (k, v)
+    init_cache: Callable # (batch, max_len, dtype, mode, layers=count) -> stacked cache tree
     sliced_dyn: Callable # like sliced, ctx may be a 0-d tensor; caches out of place under grad
 
 
@@ -72,11 +85,25 @@ def _scan_full(group: BlockGroup, bp, x, remat: bool, cfg: ModelConfig):
 
 def _scan(step: Callable, bp, x, cache, arg):
     """The reference's ``lax.scan`` over stacked layers (``_scan_sliced`` /
-    ``_scan_decode``): layer ``i`` gets its parameter and cache views and
-    writes its K/V into the stacked cache in place."""
-    ck, cv = cache
-    for bp_l, ck_l, cv_l in zip(_unstack(bp), ck, cv):
-        x, _ = step(bp_l, x, (ck_l, cv_l), arg)
+    ``_scan_decode``): layer ``i`` gets its parameter views and row ``i``
+    of every cache leaf, and returns its new cache.  A leaf the layer wrote
+    in place (a KV cache: the same view comes back) needs nothing more.  A
+    new leaf (a recurrent state) goes into row ``i``: in place while
+    autograd is off, and under grad into a new stacked tensor, so that no
+    tensor saved for the backward pass is overwritten."""
+    leaves = list(tree_leaves(cache))
+    rows = [[] for _ in leaves]
+    for i, bp_l in enumerate(_unstack(bp)):
+        old = [a[i] for a in leaves]
+        x, new = step(bp_l, x, tree_unflatten(cache, old), arg)
+        for j, (o, n) in enumerate(zip(old, tree_leaves(new))):
+            if n is not o and not torch.is_grad_enabled():
+                o.copy_(n)
+            rows[j].append(n)
+    if torch.is_grad_enabled():
+        leaves = [a if all(n is o for n, o in zip(r, a)) else torch.stack(r)
+                  for a, r in zip(leaves, rows)]
+        cache = tree_unflatten(cache, leaves)
     return x, cache
 
 
@@ -142,8 +169,8 @@ def chunked_xent(x: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor,
 
 def _dense_like_groups(cfg: ModelConfig) -> List[Tuple[str, int, str]]:
     """``[(group_name, count, kind)]`` of the block stack (reference
-    ``lm.py:173-194``); the ssm, hybrid and vlm families are not yet
-    ported (ROADMAP Queue 1 item 8)."""
+    ``lm.py:173-194``); the vlm family is not yet ported (ROADMAP Queue 1
+    item 8)."""
     if cfg.family == "dense":
         return [("blocks", cfg.n_layers, "dense")]
     if cfg.family == "moe":
@@ -151,14 +178,28 @@ def _dense_like_groups(cfg: ModelConfig) -> List[Tuple[str, int, str]]:
         gs = [("dense0", first_dense, "dense")] if first_dense else []
         gs.append(("moe", cfg.n_layers - first_dense, "moe"))
         return gs
+    if cfg.family == "ssm":
+        return [("blocks", cfg.n_layers, "ssm")]
+    if cfg.family == "hybrid":
+        pat = len(cfg.block_pattern)           # (rec, rec, attn)
+        n_super = cfg.n_layers // pat
+        tail = cfg.n_layers - n_super * pat
+        gs = [("super", n_super, "super")]
+        if tail:
+            gs.append(("tail", tail, "rec"))
+        return gs
     raise NotImplementedError(f"family {cfg.family!r}: not yet ported (ROADMAP Queue 1 item 8)")
 
 
+def _kv_zeros(cfg: ModelConfig, layers: int, batch: int, length: int, dtype, device):
+    shape = (layers, batch, length, cfg.n_kv_heads, cfg.hd)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
 def _kv_cache_init(cfg: ModelConfig, count: int, device) -> Callable:
-    def init_cache(batch, max_len, dtype=torch.bfloat16):
-        shape = (count, batch, max_len, cfg.n_kv_heads, cfg.hd)
-        return (torch.zeros(shape, dtype=dtype, device=device),
-                torch.zeros(shape, dtype=dtype, device=device))
+    def init_cache(batch, max_len, dtype=torch.bfloat16, mode="sliced", layers=count):
+        return _kv_zeros(cfg, layers, batch, max_len, dtype, device)
     return init_cache
 
 
@@ -210,7 +251,95 @@ def _make_moe_group(cfg: ModelConfig, name: str, count: int, device):
                       with_cache(attn_mod.attn_sliced_dyn)), init_params
 
 
-_GROUP_MAKERS = {"dense": _make_dense_group, "moe": _make_moe_group}
+def _make_state_group(cfg: ModelConfig, name: str, count: int, device, *, block, step,
+                      init_state, init_block):
+    """Recurrent blocks whose cache is the state they carry, f32 whatever
+    ``dtype``: Mamba-2 (``(conv, ssm)``, reference ``lm.py:270-288``) or
+    RG-LRU, the hybrid's tail (``(conv, h)``, ``lm.py:291-307``).  ``block``
+    runs a slice from a state (``None``: zeros), ``step`` one token."""
+    def full(bp, x):
+        return block(bp, cfg, x, None)[0]
+
+    def sliced(bp, x, cache, ctx):
+        return block(bp, cfg, x, cache)
+
+    def decode(bp, x, cache, pos):
+        return step(bp, cfg, x, cache)
+
+    def init_cache(batch, max_len, dtype=torch.bfloat16, mode="sliced", layers=count):
+        return init_state(cfg, batch, layers, device)
+
+    def init_params(gen):
+        return _stack_init(lambda g: init_block(g, cfg), gen, count)
+
+    return BlockGroup(name, count, full, sliced, decode, init_cache, sliced), init_params
+
+
+def _make_super_group(cfg: ModelConfig, name: str, count: int, device):
+    """RecurrentGemma super-block: (rec, rec, attn-with-window) (reference
+    ``lm.py:310-377``).  Its cache is ``((rec_conv, rec_h), (k, v))``, the
+    rec states stacked over the block's rec layers; the decode writes K/V
+    into a ring (``ring=True``), of ``min(max_len, window)`` rows when
+    ``init_cache`` is asked for ``mode="decode"``."""
+    n_rec = sum(1 for b in cfg.block_pattern if b == "rec")
+    w = cfg.window
+
+    def init_one(gen):
+        p = {f"rec{i}": rglru_mod.init_rec_block(gen, cfg) for i in range(n_rec)}
+        p["attn"] = layers_mod.init_dense_block(gen, cfg)
+        return p
+
+    def full(bp, x):
+        for i in range(n_rec):
+            x, _ = rglru_mod.rec_block(bp[f"rec{i}"], cfg, x, None)
+        return layers_mod.dense_block_full(bp["attn"], cfg, x, window=w)
+
+    def with_cache(rec_fn, attn_fn, **attn_kw):
+        def block(bp, x, cache, arg):
+            (rec_conv, rec_h), kv = cache
+            new = []
+            for i in range(n_rec):
+                x, c = rec_fn(bp[f"rec{i}"], cfg, x, (rec_conv[i], rec_h[i]))
+                new.append(c)
+            x, kv = attn_fn(bp["attn"], cfg, x, kv, arg, window=w, **attn_kw)
+            rec = (torch.stack([c[0] for c in new]), torch.stack([c[1] for c in new]))
+            return x, (rec, kv)
+        return block
+
+    def init_cache(batch, max_len, dtype=torch.bfloat16, mode="sliced", layers=count):
+        # materialised per layer (the reference broadcasts one zero block):
+        # an expanded view would alias every layer's rows, which the
+        # in-place cache writes would then share
+        rec_conv, rec_h = rglru_mod.init_rec_state(cfg, batch, layers * n_rec, device)
+        rec = (rec_conv.reshape(layers, n_rec, *rec_conv.shape[1:]),
+               rec_h.reshape(layers, n_rec, *rec_h.shape[1:]))
+        kv_len = min(max_len, w) if mode == "decode" else max_len
+        return rec, _kv_zeros(cfg, layers, batch, kv_len, dtype, device)
+
+    def init_params(gen):
+        return _stack_init(init_one, gen, count)
+
+    return BlockGroup(name, count, full,
+                      with_cache(rglru_mod.rec_block, layers_mod.dense_block_sliced),
+                      with_cache(rglru_mod.rec_block_decode, layers_mod.dense_block_decode,
+                                 ring=True),
+                      init_cache,
+                      with_cache(rglru_mod.rec_block, layers_mod.dense_block_sliced_dyn)
+                      ), init_params
+
+
+_GROUP_MAKERS = {
+    "dense": _make_dense_group,
+    "moe": _make_moe_group,
+    "ssm": functools.partial(_make_state_group, block=ssm_mod.mamba2_block,
+                             step=ssm_mod.mamba2_decode, init_state=ssm_mod.init_ssm_state,
+                             init_block=ssm_mod.init_mamba2),
+    "rec": functools.partial(_make_state_group, block=rglru_mod.rec_block,
+                             step=rglru_mod.rec_block_decode,
+                             init_state=rglru_mod.init_rec_state,
+                             init_block=rglru_mod.init_rec_block),
+    "super": _make_super_group,
+}
 
 
 class Model(torch.nn.Module):
@@ -259,8 +388,12 @@ class Model(torch.nn.Module):
         x = rms_norm(x, params["final_ln"])
         return (x @ self._head_weight(params).to(x.dtype)).float()
 
-    def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16):
-        return [g.init_cache(batch, max_len, dtype) for g in self.groups]
+    def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                    mode: str = "sliced"):
+        """Every group's zero cache.  ``mode="decode"`` sizes the hybrid's
+        KV ring to ``min(max_len, window)``; recurrent states are float32
+        whatever ``dtype``."""
+        return [g.init_cache(batch, max_len, dtype, mode=mode) for g in self.groups]
 
     def prefill(self, params, batch, max_len: int):
         caches = self.init_caches(batch["tokens"].shape[0], max_len, dtype=self.cfg.dtype)
@@ -269,8 +402,9 @@ class Model(torch.nn.Module):
         return self.head(params, x[:, -1:, :]), caches
 
     def decode_step(self, params, caches, batch, pos):
-        """One token per row at ``pos`` (scalar or per-row (B,)); the caches
-        are updated in place and returned."""
+        """One token per row at ``pos`` (scalar or per-row (B,); the hybrid's
+        ring takes a scalar); the caches are updated in place and
+        returned."""
         x = self.embed(params, batch, ctx=1)
         x, caches = apply_groups_decode(self, params, x, caches, pos)
         return self.head(params, x), caches
