@@ -26,8 +26,11 @@ result line):
                bit; the pipelined step's slices (B 4, l 256 at ctx 256 and
                1792, Sk = ctx + l); qwen3-moe's GQA ratio of 16 (Hq 64 /
                Hkv 4: the forward at B 2, l 1024; dQ and dK/dV at B 1, l 256,
-               ctx 256; decode at L 2048 with per-row kv_len); the autograd
-               Function against autograd of the plain op;
+               ctx 256; decode at L 2048 with per-row kv_len); phase 8b's
+               training shapes (B 4, l 2048, Hq = Hkv = 32, hd 96: phi-3-vision;
+               Hq = Hkv = 16, hd 64: whisper's decoder) and decodes (B 2, L
+               2112, kv_len 2049, 32 heads of 96; B 2, L 448, kv_len 65, 16 of
+               64); the autograd Function against autograd of the plain op;
                a bf16 row stride that is not a multiple of 8 is refused;
   3. serve   — qwen3-0.6b at full width (28 layers, random weights from a
                seeded generator, bf16, use_kernel=True) behind the
@@ -125,14 +128,39 @@ result line):
                3072 tokens into 3200 rows, then 64 greedy decode_steps through
                the windowed ring, every logit row within 5e-2 of Model.forward
                of the same tokens;
+ 8b. families — the vlm and enc-dec families at full width.  phi-3-vision-
+               4.2b (d 3072, 32 heads of 96, d_ff 8192, vocab 32064, 576 patch
+               rows) cut to 12 of 32 layers: the loss and gradients through
+               the kernels against the plain paths at batch 1 x seq 2048 (576
+               patches + 1472 text tokens; phase 4's bounds) under gspmd,
+               contiguous (K 4, M 8) and slices (256, 256, 328, 504, 704),
+               whose first two hold only patch rows; 5 gspmd and 3 contiguous
+               steps through launch.train.main --use-kernel at batch 4 x seq
+               2048, launches exact per step; Model.prefill of 2 x (576 +
+               1472) into 2112 rows and 16 greedy decode_steps against the
+               plain path (5e-2); remat_policy "dots" against "full" on the
+               gspmd value-and-grad at batch 1: loss and gradients bit-equal,
+               ms and peak memory of both.  whisper-medium (d 1024, 16 heads
+               of 64, d_ff 4096, vocab 51865) at full depth, 24 encoder + 24
+               decoder layers: parity under gspmd at batch 1 x 2048 frames
+               and tokens, 5 gspmd steps at batch 4, --mode terapipe refused
+               (the encoder cannot be token-sliced), prefill of 2 x 1500
+               frames and 2 x 64 tokens into 448 rows and 32 decode steps
+               against the plain path; only the decoder's self-attention
+               launches the kernels (the encoder's bidirectional attention
+               and the cross-attention take the plain route, as in the
+               reference), every count exact;
   9. times   — each kernel at a main-path shape (CUDA events, median of 30
                after warm-up, L2 flushed before each launch) beside its
                bound, its plain version and one PyTorch library call; the
                forward also at the training shape (train_ms, train_bound_ms,
-               train_library_ms);
+               train_library_ms); every kernel also at phase 8b's shapes
+               (each row's family_shapes);
  10. profiles — one gspmd step and two pipelined steps (M 8, contiguous and
                1f1b) of gpt3-1b, and one gspmd step each of deepseek-moe-16b
-               (3 layers) and mamba2-2.7b (40 layers), under
+               (3 layers), mamba2-2.7b (40 layers) and whisper-medium (with
+               the share of its device time in the encoder's and the
+               cross-attention's plain attention cores), under
                torch.profiler: the 15 device kernels that took the most
                time and the repo's own kernels wherever they rank, with
                their share of the step, the device's busy share, and the
@@ -332,6 +360,12 @@ PIPE_CASES = [(TRAIN_BATCH, TRAIN_SEQ // PIPE_SLICES, ctx, 16, 16, 128, 1.0, 0)
               for ctx in (TRAIN_SEQ // PIPE_SLICES, TRAIN_SEQ - TRAIN_SEQ // PIPE_SLICES)]
 
 
+# one layer's attention in the training steps of phase 8b's families:
+# phi-3-vision (Hq = Hkv = 32, hd 96) and whisper-medium's decoder (16, 64)
+FAMILY_TRAIN_CASES = [(TRAIN_BATCH, TRAIN_SEQ, 0, 32, 32, 96, 1.0, 0),
+                      (TRAIN_BATCH, TRAIN_SEQ, 0, 16, 16, 64, 1.0, 0)]
+
+
 def _main_path_case(b, l) -> bool:
     """A case at the training or the pipelined step's own shape (logged)."""
     return b == TRAIN_BATCH and l in (TRAIN_SEQ, TRAIN_SEQ // PIPE_SLICES)
@@ -356,8 +390,9 @@ MOE_BWD_CASE = (1, 256, 256, 64, 4, 128, 1.0, 37)
 
 def fwd_cases():
     """prefill_cases() plus the training shape, with and without a tail, the
-    pipelined step's slices and qwen3-moe's GQA-16 prefill."""
-    return prefill_cases() + TRAIN_CASES + PIPE_CASES + [MOE_PREFILL_CASE]
+    pipelined step's slices, qwen3-moe's GQA-16 prefill and phase 8b's
+    training shapes at hd 96 and 64."""
+    return prefill_cases() + TRAIN_CASES + PIPE_CASES + [MOE_PREFILL_CASE] + FAMILY_TRAIN_CASES
 
 
 def _check_bf16_row_stride() -> None:
@@ -393,6 +428,10 @@ DECODE_CASES = [SERVE_ROUND,
                 (2, 384, 16, 2, 64, [2 * CHUNK - 1, 384]),
                 (2, 640, 16, 8, 96, [3 * CHUNK, 641]),
                 (2, 2048, 64, 4, 128, [1040, 517])]      # qwen3-moe: GQA rep 16
+# phase 8b's decodes: phi-3-vision's first step after its 2 x 2048 prefill
+# into 2112 rows, whisper's after 2 x 64 tokens into 448
+FAMILY_DECODE_CASES = [(2, 2112, 32, 32, 96, 2049), (2, 448, 16, 16, 64, 65)]
+DECODE_CASES += FAMILY_DECODE_CASES
 
 
 def phase_kernels() -> dict:
@@ -436,7 +475,7 @@ def phase_kernels() -> dict:
             what = f"decode {dtype} b={b} L={L} hq={hq} hkv={hkv} hd={hd} kv_len={kv_len}"
             e = _err(out, ref, tol, what)
             worst = max(worst, e)
-            if hq // hkv == 16:
+            if hq // hkv == 16 or (b, L, hq, hkv, hd, kv_len) in FAMILY_DECODE_CASES:
                 log(f"[kernels] {what}: max abs err {e:.3g} (tol {tol})")
             empty = torch.as_tensor(kv_len, device="cuda").reshape(-1).expand(b) == 0
             if torch.count_nonzero(out[empty]).item():
@@ -465,9 +504,10 @@ GQA_CTX_CASE = (2, 200, 100, 16, 4, 128, 1.0, 37)
 def bwd_cases():
     """prefill_cases() plus a ragged 33-row slice, a GQA slice whose ctx is
     not a multiple of the dK/dV kernel's 64-key tile, the training shape,
-    with and without a tail, the pipelined step's slices and a GQA-16 slice."""
+    with and without a tail, the pipelined step's slices, a GQA-16 slice and
+    phase 8b's training shapes at hd 96 and 64."""
     return (prefill_cases() + [(2, 33, 17, 8, 2, 64, 1.0, 37), GQA_CTX_CASE] + TRAIN_CASES
-            + PIPE_CASES + [MOE_BWD_CASE])
+            + PIPE_CASES + [MOE_BWD_CASE] + FAMILY_TRAIN_CASES)
 
 
 def _bwd_inputs(b, l, ctx, hq, hkv, hd, sc, dtype, gen, tail=37):
@@ -737,7 +777,7 @@ def _check_train_against_plain(cfg, pipelined: Optional[Dict[str, TeraPipeConfig
     named = list(tree_items(params))
     for _, p in named:
         p.requires_grad_(True)
-    toks = DataPipeline(SyntheticSource(cfg.vocab_size, 1), 1, seq).batch_at(0)
+    toks = train_launch.make_data(cfg, 1, seq, 1).batch_at(0)
     batch = {k: torch.from_numpy(a).cuda() for k, a in toks.items()}
     is_moe = cfg.family == "moe"
 
@@ -914,12 +954,13 @@ TOP_KERNELS = 15
 TOP_HOST_OPS = 12
 
 
-def _profile_step(cfg, make_vg, label: str) -> None:
+def _profile_step(cfg, make_vg, label: str) -> dict:
     """One step of the timed run's shape (launch.train.train_step with the
     value-and-grad ``make_vg(model)``, after one unprofiled step) under
     torch.profiler with CUDA activities: prints the device kernels that
     took the most time and the repo's own kernels, each with its rank and
-    share of the step's wall time, and the device's busy share."""
+    share of the step's wall time, and the device's busy share.  Returns
+    the step's wall and device ms."""
     from torch.profiler import ProfilerActivity, profile
 
     model = build_model(cfg)
@@ -927,7 +968,7 @@ def _profile_step(cfg, make_vg, label: str) -> None:
     opt = adamw(cosine_schedule(3e-4, 20, TRAIN_STEPS))
     state = {"params": tree_map(lambda p: p.requires_grad_(True), model.init(seed=0))}
     state["opt_state"] = opt.init(state["params"])
-    data = DataPipeline(SyntheticSource(cfg.vocab_size, 0), TRAIN_BATCH, TRAIN_SEQ)
+    data = train_launch.make_data(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)
     batches = [{k: torch.from_numpy(a).cuda() for k, a in data.batch_at(i).items()}
                for i in range(2)]
     train_launch.train_step(vg_fn, opt, state, batches[0])
@@ -973,6 +1014,7 @@ def _profile_step(cfg, make_vg, label: str) -> None:
     for e in host[:TOP_HOST_OPS]:
         log(f"[profile] host {e.self_cpu_time_total / 1e3:9.3f} ms "
             f"{e.self_cpu_time_total / wall_us:6.1%}  x{e.count:<6d} {e.key[:100]}")
+    return {"wall_ms": wall_us / 1e3, "device_ms": busy / 1e3}
 
 
 # ------------------------------------------------------------ 5. pipeline
@@ -1924,6 +1966,245 @@ def phase_state() -> dict:
     return counts
 
 
+# ----------------------------------------------------------- 8b. families
+VLM_LAYERS = 12                 # phi-3-vision-4.2b: 12 of 32 layers (AdamW's 7 f32 copies fit)
+# fixed non-uniform slices of patches + text for the parity check: slices 0
+# and 1 hold only patch rows, slice 2 straddles the last one (row 575), and
+# ctx 840 is off the kernels' 64-row tiles
+VLM_NONUNIFORM = (256, 256, 328, 504, 704)
+VLM_MAX_LEN = 2112              # the prefill's cache: 2048 positions + 64
+VLM_DECODE_STEPS = 16
+WHISPER_FRAMES = 1500           # whisper's 30 s window: 1500 encoder frames
+WHISPER_PROMPT = 64
+WHISPER_MAX_LEN = 448           # whisper's text context
+WHISPER_DECODE_STEPS = 32
+
+
+def _phi3_vision():
+    return _checked("phi-3-vision-4.2b", dict(
+        n_layers=32, d_model=3072, n_heads=32, n_kv_heads=32, hd=96, d_ff=8192,
+        vocab_size=32064, n_patches=576, tie_embeddings=False, dtype=torch.bfloat16,
+        remat=True), VLM_LAYERS)
+
+
+def _whisper():
+    return _checked("whisper-medium", dict(
+        n_layers=24, n_enc_layers=24, n_dec_layers=24, d_model=1024, n_heads=16,
+        n_kv_heads=16, hd=64, d_ff=4096, vocab_size=51865, tie_embeddings=False,
+        dtype=torch.bfloat16, remat=True), 24)
+
+
+def _family_inference(cfg, prompt: dict, max_len: int, steps: int, pos0: int,
+                      launches: dict) -> dict:
+    """Model.prefill of ``prompt`` into ``max_len`` rows, then ``steps``
+    greedy decode_steps at positions ``pos0``, ``pos0 + 1``, ... through the
+    kernels (once to warm up, then the counted run: ``launches`` exactly),
+    then the plain path on the kernel path's tokens.  Every logit row (the prompt's last, then
+    each decoded one) within LOGIT_REL_BOUND of the plain path's (max abs
+    err / max |logit|); a greedy token may differ only where the plain
+    path's top-2 margin is within twice the row's logit difference.
+    Returns the kernel run's launches."""
+    model = build_model(cfg.replace(use_kernel=True))
+    plain = build_model(cfg)
+    # the bf16 paths cast every weight to bf16 at each use, so holding them
+    # in bf16 gives the same numbers in half the memory
+    params = tree_map(lambda a: a.to(torch.bfloat16), model.init(seed=0))
+    b = prompt["tokens"].shape[0]
+
+    @torch.no_grad()
+    def generate(m, forced=None):
+        times = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        logits, caches = m.prefill(params, prompt, max_len)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        out, nxt = [logits[:, -1]], []
+        for i in range(steps):
+            nxt.append(forced[i] if forced is not None else out[-1].argmax(-1))
+            t0 = time.time()
+            step, caches = m.decode_step(params, caches, {"tokens": nxt[-1][:, None]}, pos0 + i)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            out.append(step[:, -1])
+        return out, nxt, times
+
+    generate(model)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    out_k, tok_k, times_k = generate(model)
+    counts = {name: fn.launches for name, fn in COUNTERS.items()}
+    if {k: v for k, v in counts.items() if v} != launches:
+        raise AssertionError(f"{cfg.name} inference: launches {counts} != {launches}")
+    out_p, _, times_p = generate(plain, forced=tok_k)
+    worst, flips = 0.0, 0
+    for i, (a, p) in enumerate(zip(out_k, out_p)):
+        if not torch.isfinite(a).all() or a.shape != (b, cfg.vocab_size):
+            raise AssertionError(f"{cfg.name} step {i}: non-finite or misshapen logits")
+        top2 = p.topk(2, dim=-1).values
+        for r in range(b):
+            diff = (a[r] - p[r]).abs().max()
+            worst = max(worst, (diff / p[r].abs().max()).item())
+            if a[r].argmax() != p[r].argmax():
+                flips += 1
+                if top2[r, 0] - top2[r, 1] > 2 * diff:
+                    raise AssertionError(f"{cfg.name} step {i} row {r}: greedy tokens differ "
+                                         f"at a top-2 margin beyond twice the logits' "
+                                         f"difference {diff.item():.4g}")
+    shape = " + ".join(f"{k} {tuple(v.shape)}" for k, v in prompt.items())
+    log(f"[families] {_card()}; {cfg.name} inference, prefill of {shape} into {max_len} rows "
+        f"then {steps} greedy decode steps, kernels vs plain attention on the same tokens: "
+        f"max abs logit err / max |logit| per row, worst {worst:.3g} over "
+        f"{b * len(out_k)} rows (bound {LOGIT_REL_BOUND}); greedy tokens differ at {flips}; "
+        f"prefill {times_k[0] * 1e3:.1f} ms (plain {times_p[0] * 1e3:.1f}), decode step "
+        f"median {statistics.median(times_k[1:]) * 1e3:.2f} ms (plain "
+        f"{statistics.median(times_p[1:]) * 1e3:.2f}); launches {counts}")
+    if worst > LOGIT_REL_BOUND:
+        raise AssertionError(f"{cfg.name} inference: kernels and plain path disagree ({worst:.3g})")
+    del params
+    return counts
+
+
+def _dots_vs_full(cfg) -> dict:
+    """The gspmd value-and-grad at batch 1 and TRAIN_BATCH x TRAIN_SEQ under
+    remat_policy "full" and "dots" from one seeded init: one warm-up call,
+    then one timed call each (launches exact); the loss and every gradient
+    leaf must be bit-equal.  Returns the timed calls' launches."""
+    per_call = _launches_per_step(cfg, 1)
+    counts = {}
+    for b in (1, TRAIN_BATCH):
+        toks = train_launch.make_data(cfg, b, TRAIN_SEQ, 1).batch_at(0)
+        batch = {k: torch.from_numpy(a).cuda() for k, a in toks.items()}
+        runs = {}
+        for policy in ("full", "dots"):
+            model = build_model(cfg.replace(use_kernel=True, remat_policy=policy))
+            params = tree_map(lambda p: p.requires_grad_(True), model.init(seed=0))
+            vg = value_and_grad(model.loss)
+            vg(params, batch)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in COUNTERS.values():
+                fn.launches = 0
+            t0 = time.time()
+            loss, grads = vg(params, batch)
+            torch.cuda.synchronize()
+            ms = (time.time() - t0) * 1e3
+            counts[f"phi-3-vision remat {policy}, batch {b}"] = got = {
+                name: fn.launches for name, fn in COUNTERS.items()}
+            if got != {k: per_call.get(k, 0) for k in COUNTERS}:
+                raise AssertionError(f"dots: {policy} launches {got} != {per_call}")
+            runs[policy] = (loss, list(tree_leaves(grads)), ms,
+                            (torch.cuda.max_memory_allocated() - base) / 2**30, base / 2**30)
+            del params, grads, model
+            torch.cuda.empty_cache()
+        (lf, gf, msf, pf, bf), (ld, gd, msd, pd, bd) = runs["full"], runs["dots"]
+        differ = sum(not torch.equal(x, y) for x, y in zip(gd, gf))
+        log(f"[families] {_card()}; {cfg.name} FULL width, {cfg.n_layers} layers, gspmd "
+            f"value-and-grad at batch {b} x seq {TRAIN_SEQ}, remat_policy full vs dots: loss "
+            f"{lf.item():.6f} vs {ld.item():.6f}, {differ} of {len(gf)} gradient leaves "
+            f"differ; full {msf:.1f} ms, peak {pf:.2f} GiB above the {bf:.2f} GiB baseline; "
+            f"dots {msd:.1f} ms, peak {pd:.2f} GiB above {bd:.2f} (the full run's gradients "
+            f"held); launches per call {per_call}")
+        if not torch.equal(ld, lf) or differ:
+            raise AssertionError(f"dots: loss or {differ} gradient leaves not bit-equal to full")
+        del runs, gf, gd
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_families() -> dict:
+    """The vlm and enc-dec families at full width.  phi-3-vision-4.2b
+    (VLM_LAYERS layers, 576 patch rows + 1472 text tokens): parity at batch
+    1 x TRAIN_SEQ under gspmd, contiguous M 8 and VLM_NONUNIFORM, then
+    TRAIN_STEPS gspmd and PIPE_STEPS contiguous steps through launch.train,
+    prefill and decode against the plain path, and the dots remat policy
+    against the full one.  whisper-medium (24 + 24 layers): parity under
+    gspmd, TRAIN_STEPS gspmd steps, --mode terapipe refused, prefill of
+    WHISPER_FRAMES frames and decode against the plain path; only the
+    decoder's self-attention reaches the kernels.  Returns the counts of
+    its main runs."""
+    counts, runs = {}, {}
+    cfg = _phi3_vision()
+    get_config_full = train_launch.get_config
+    train_launch.get_config = lambda arch, smoke: get_config_full(arch, smoke).replace(
+        n_layers=VLM_LAYERS)
+    try:
+        torch.cuda.empty_cache()
+        parity = {f"contiguous, K {PIPE_RANKS}, M {PIPE_SLICES}": TeraPipeConfig(
+            n_token_slices=PIPE_SLICES),
+            f"contiguous, K {PIPE_RANKS}, slices {list(VLM_NONUNIFORM)}": TeraPipeConfig(
+            slice_lens=VLM_NONUNIFORM)}
+        n_params = {"phi-3-vision": _check_train_against_plain(cfg, parity, gspmd=True)}
+        log(f"[families] {cfg.name} FULL width, {VLM_LAYERS} of 32 layers: "
+            f"{n_params['phi-3-vision'] / 1e9:.3f} B parameters; {cfg.n_patches} patch rows + "
+            f"{TRAIN_SEQ - cfg.n_patches} text tokens per sequence")
+        torch.cuda.empty_cache()
+        argv = [a if a != "gpt3-1b" else "phi-3-vision-4.2b" for a in TRAIN_ARGV]
+        counts["phi-3-vision gspmd"], runs["phi-3-vision gspmd"] = _train_run(
+            cfg, argv, "families gspmd", _launches_per_step(cfg, 1))
+        torch.cuda.empty_cache()
+        counts["phi-3-vision contiguous"], runs["phi-3-vision contiguous"] = _train_run(
+            cfg, argv + ["--mode", "terapipe", "--token-slices", str(PIPE_SLICES)],
+            "families contiguous", _launches_per_step(cfg, PIPE_SLICES), steps=PIPE_STEPS)
+        torch.cuda.empty_cache()
+    finally:
+        train_launch.get_config = get_config_full
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    text = TRAIN_SEQ - cfg.n_patches
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (2, text), generator=gen,
+                                      device="cuda"),
+              "patch_embeds": torch.randn((2, cfg.n_patches, cfg.d_model), generator=gen,
+                                          device="cuda")}
+    counts["phi-3-vision inference"] = _family_inference(
+        cfg, prompt, VLM_MAX_LEN, VLM_DECODE_STEPS, TRAIN_SEQ,
+        {"terapipe_attention_fwd": cfg.n_layers,
+         "decode_attention": cfg.n_layers * VLM_DECODE_STEPS})
+    torch.cuda.empty_cache()
+    counts.update(_dots_vs_full(cfg))
+    torch.cuda.empty_cache()
+
+    cfg = _whisper()
+    n_params["whisper"] = _check_train_against_plain(cfg, gspmd=True)
+    log(f"[families] {cfg.name} FULL width and depth, 24 encoder + 24 decoder layers: "
+        f"{n_params['whisper'] / 1e9:.3f} B parameters; {TRAIN_SEQ} frames and {TRAIN_SEQ} "
+        f"tokens per "
+        f"sequence")
+    torch.cuda.empty_cache()
+    argv = [a if a != "gpt3-1b" else "whisper-medium" for a in TRAIN_ARGV]
+    # the decoder's layers launch the kernels, the encoder and the
+    # cross-attention none
+    dec = cfg.replace(n_layers=cfg.n_dec_layers)
+    counts["whisper gspmd"], runs["whisper gspmd"] = _train_run(
+        cfg, argv, "families gspmd", _launches_per_step(dec, 1))
+    torch.cuda.empty_cache()
+    try:
+        train_launch.main(argv + ["--steps", "1", "--mode", "terapipe"])
+    except NotImplementedError as e:
+        log(f"[families] {cfg.name} --mode terapipe refused, as the reference: {e}")
+    else:
+        raise AssertionError(f"{cfg.name}: --mode terapipe was not refused")
+    torch.cuda.empty_cache()
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (2, WHISPER_PROMPT), generator=gen,
+                                      device="cuda"),
+              "frames": torch.randn((2, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                                    device="cuda")}
+    counts["whisper inference"] = _family_inference(
+        cfg, prompt, WHISPER_MAX_LEN, WHISPER_DECODE_STEPS, WHISPER_PROMPT,
+        {"terapipe_attention_fwd": dec.n_layers,
+         "decode_attention": dec.n_layers * WHISPER_DECODE_STEPS})
+    torch.cuda.empty_cache()
+    # mfu: 6 N per position of the batch (vlm: patches + text; whisper: the
+    # encoder's and the decoder's positions are as many) over 989 TFLOP/s
+    mfu = lambda s, m: (6 * n_params[s.split()[0]] * TRAIN_BATCH * TRAIN_SEQ
+                        / (m["step_ms"] / 1e3) / PEAK_BF16_FLOPS)
+    log(f"[families] {_card()}; batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, --use-kernel: " + "; ".join(
+        f"{s} {m['step_ms']:.1f} ms/step, {m['tok_s']:.0f} positions/s, mfu {mfu(s, m):.4f}, "
+        f"peak {m['peak_gib'] - m['base_gib']:.2f} GiB above the {m['base_gib']:.2f} GiB "
+        f"baseline" for s, m in runs.items()))
+    return counts
+
+
 # --------------------------------------------------------------- 9. times
 def phase_times(errs: dict, launches: dict) -> list:
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2019,14 +2300,97 @@ def phase_times(errs: dict, launches: dict) -> list:
     log(f"[times] terapipe_attention_fwd at the training shape ({shape}): kernel "
         f"{rows[0]['train_ms']:.4f} ms, bound {rows[0]['train_bound_ms']:.4f} ms, SDPA "
         f"forward {rows[0]['train_library_ms']:.4f} ms")
+    del q, k, v, do, lse, delta, args, qt, kt, vt, out
+    _family_times(rows)
     return rows
 
 
+def _family_times(rows: list) -> None:
+    """Each kernel at phase 8b's shapes (the training steps at hd 96 and 64,
+    both decodes), timed as above beside its bound, its plain version and
+    the library call; each row gets a "family_shapes" list of them."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dt = torch.bfloat16
+    row = {r["name"]: r for r in rows}
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+
+    def add(name, shape, fn, ref, flops, nb, library):
+        bms, by = bound_ms(flops, nb)
+        e = dict(shape=shape, ms=time_ms(fn), plain_ms=time_ms(ref), bound_ms=bms,
+                 bound_by=by, library_ms=library)
+        row[name].setdefault("family_shapes", []).append(e)
+        log(f"[times] {name} ({shape}): kernel {e['ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"plain {e['plain_ms']:.4f} ms, library {library:.4f} ms")
+
+    for (b, l, ctx, hq, hkv, hd, _, _) in FAMILY_TRAIN_CASES:
+        q, k, v, do, lse, delta = _bwd_inputs(b, l, ctx, hq, hkv, hd, 1.0, dt, gen, tail=0)
+        args = (q, k, v, do, lse, delta, ctx)
+        pairs = b * hq * sum(ctx + i + 1 for i in range(l))
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        with torch.no_grad():
+            fwd_library = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+        out = sdpa(qt, kt, vt, is_causal=True)
+        gt = do.transpose(1, 2)
+        bwd_library = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
+                                                          retain_graph=True))
+        shape = f"B={b} l={l} ctx={ctx} Hq={hq} Hkv={hkv} hd={hd} bf16"
+        add("terapipe_attention_fwd", shape, lambda: terapipe_attention_fwd(q, k, v, ctx),
+            lambda: terapipe_attention_ref(q, k, v, ctx), 4 * hd * pairs,
+            nbytes(q, k, v, q, lse), fwd_library)
+        add("terapipe_attention_dq", shape, lambda: terapipe_attention_dq(*args),
+            lambda: terapipe_attention_dq_ref(*args), 6 * hd * pairs,
+            nbytes(q, k, v, do, lse, delta, q), bwd_library)
+        add("terapipe_attention_dkv", shape, lambda: terapipe_attention_dkv(*args),
+            lambda: terapipe_attention_dkv_ref(*args), 8 * hd * pairs,
+            nbytes(q, k, v, do, lse, delta, k, v), bwd_library)
+        del q, k, v, do, lse, delta, args, qt, kt, vt, out, gt
+    for (b, L, hq, hkv, hd, kv_len) in FAMILY_DECODE_CASES:
+        q = _rand((b, 1, hq, hd), dt, gen)
+        k = _rand((b, L, hkv, hd), dt, gen)
+        v = _rand((b, L, hkv, hd), dt, gen)
+        lens = torch.full((b,), kv_len, dtype=torch.int32, device="cuda")
+        dmask = (torch.arange(L, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        add("decode_attention", f"B={b} L={L} kv_len={kv_len} Hq={hq} Hkv={hkv} hd={hd} bf16",
+            lambda: decode_attention_kernel(q, k, v, lens),
+            lambda: decode_attention_ref(q, k, v, lens), 4 * hd * hq * b * kv_len,
+            (2 * q.numel() + 2 * b * kv_len * hkv * hd) * 2 + 4 * b,
+            time_ms(lambda: sdpa(qt, kt, vt, attn_mask=dmask, enable_gqa=True)))
+
+
 # ----------------------------------------------------------- 10. profiles
+def _plain_attention_share(cfg, profiled: dict) -> None:
+    """whisper's plain attention cores (attention_scores_gqa, no mask) at
+    the training shape, B TRAIN_BATCH, TRAIN_SEQ queries over TRAIN_SEQ
+    keys, Hq = Hkv = 16, hd 64, bf16: the forward and the backward timed
+    with CUDA events, and what a step's 24 encoder layers (and as many
+    cross-attentions, the same shape) spend in them, 2 forwards (remat)
+    and a backward each, as a share of the profiled step's device time."""
+    from repro_torch.models.common import attention_scores_gqa
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.hd)
+    q, k, v = (_rand(shape, torch.bfloat16, gen).requires_grad_(True) for _ in range(3))
+    g = _rand(shape, torch.bfloat16, gen)
+    with torch.no_grad():
+        fwd = time_ms(lambda: attention_scores_gqa(q, k, v, mask=None), iters=10)
+    out = attention_scores_gqa(q, k, v, mask=None)
+    bwd = time_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True), iters=10)
+    per_stack = cfg.n_enc_layers * (2 * fwd + bwd)
+    log(f"[profile] {_card()}; {cfg.name} plain attention core (B={shape[0]} S={shape[1]} "
+        f"H={shape[2]} hd={shape[3]} bf16, f32 scores, no mask): forward {fwd:.3f} ms, "
+        f"backward {bwd:.3f} ms; the encoder's {cfg.n_enc_layers} layers x (2 forwards + 1 "
+        f"backward) {per_stack:.1f} ms = {per_stack / profiled['device_ms']:.1%} of the "
+        f"profiled step's {profiled['device_ms']:.1f} device ms, and as much again in the "
+        f"cross-attention ({2 * per_stack / profiled['device_ms']:.1%} together)")
+
+
 def phase_profiles() -> None:
     """One gspmd step and two pipelined steps (M = PIPE_SLICES, contiguous
-    and 1f1b) of gpt3-1b and one gspmd step each of deepseek-moe-16b (phase
-    7's depth) and mamba2-2.7b (phase 8's) under torch.profiler, last: after a profiled region the host's eager launches
+    and 1f1b) of gpt3-1b, one gspmd step each of deepseek-moe-16b (phase
+    7's depth), mamba2-2.7b (phase 8's) and whisper-medium (with its plain
+    attention's share of the device time) under torch.profiler, last: after a profiled region the host's eager launches
     run slower for the rest of the process, which a host-bound run (the
     pipelined step, the stage sweep) shows in its times, so every timed
     eager run comes before it."""
@@ -2044,6 +2408,10 @@ def phase_profiles() -> None:
                   lambda model: value_and_grad(model.loss), "gspmd")
     torch.cuda.empty_cache()
     _profile_step(_mamba2(), lambda model: value_and_grad(model.loss), "gspmd")
+    torch.cuda.empty_cache()
+    cfg = _whisper().replace(use_kernel=True)
+    _plain_attention_share(cfg, _profile_step(cfg, lambda model: value_and_grad(model.loss),
+                                              "gspmd"))
     torch.cuda.empty_cache()
 
 
@@ -2075,6 +2443,8 @@ def main() -> int:
     done("moe")
     paths.update(phase_state())
     done("state")
+    paths.update(phase_families())
+    done("families")
     launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in COUNTERS}
     log(f"[launches] main paths: {paths}")
     rows = phase_times(errs, launches)

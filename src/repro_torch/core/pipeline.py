@@ -74,6 +74,11 @@ What differs from the reference, and why the result does not:
   after it on the reassembled sequence, before the head; the explicit-
   backward schedules take the loss at the last stage, so they refuse
   post-groups, and, as the reference's, every family but dense and moe.
+* **The vlm family** runs as the dense one on a sequence of patches +
+  text: the prologue's embedding puts the patch rows first, so the first
+  slices may hold only patches, and the loss after the pipeline is taken
+  over the text rows (``Model.head_loss``).  The enc-dec family raises: its
+  encoder is bidirectional and cannot be cut into token slices.
 """
 from __future__ import annotations
 
@@ -251,10 +256,11 @@ class _Plan:
     def prefix(self, params, batch) -> torch.Tensor:
         """The prologue before the pipeline (reference ``:307-319``): the
         embedding, then the pre-groups on the whole sequence (each layer
-        under checkpoint when ``cfg.remat``), in the activation dtype."""
+        under checkpoint when ``cfg.remat``), in the activation dtype.  The
+        vlm family's embedding puts the batch's patch rows first."""
         x = self.model.embed(params, batch, 0)
         for g in self.pre:
-            x = _scan_full(g, params["groups"][g.name], x, self.cfg.remat, self.cfg)
+            x = _scan_full(g, params["groups"][g.name], x, self.cfg.remat)
         return x.to(self.cfg.dtype)
 
     def rows_of(self, a: torch.Tensor, d: int, m: int) -> torch.Tensor:
@@ -285,10 +291,10 @@ class _Plan:
         """One chunk's forward of one slice at offset ``ctx``: its blocks in
         order, each under non-reentrant checkpoint when ``remat`` and
         autograd is recording (the reference's per-block
-        ``jax.checkpoint``)."""
+        ``jax.checkpoint``, with no remat policy)."""
         block = self.block_fn
         if remat and torch.is_grad_enabled():
-            block = _remat(self.block_fn, self.cfg)
+            block = _remat(self.block_fn)
         new = []
         for bp, c in zip(layers, caches):
             x, c = block(bp, x, c, ctx)
@@ -368,7 +374,8 @@ def _make_loss_from_plan(p: _Plan) -> Callable:
     """Differentiable loss over the tick loop: reassemble the last stage's
     per-item outputs into ``(B, L, d)``, run the post-groups on it (each
     layer under checkpoint when ``cfg.remat``), then the head and the
-    chunked loss, as the reference's ``_make_loss_from_plan`` does."""
+    chunked loss (vlm: over the text rows, so ``labels`` are ``L -
+    n_patches`` long), as the reference's ``_make_loss_from_plan`` does."""
     if p.assign.has_backward:
         raise ValueError(f"schedule {p.sched!r} computes the loss and its gradients in one "
                          f"pass; build it with make_terapipe_value_and_grad")
@@ -378,7 +385,7 @@ def _make_loss_from_plan(p: _Plan) -> Callable:
         x_final = torch.cat([torch.cat(outs[d * p.M:(d + 1) * p.M], dim=1)
                              for d in range(p.D)], dim=0)
         for g in p.post:
-            x_final = _scan_full(g, params["groups"][g.name], x_final, p.cfg.remat, p.cfg)
+            x_final = _scan_full(g, params["groups"][g.name], x_final, p.cfg.remat)
         return p.model.head_loss(params, x_final, batch["labels"])
 
     return loss_fn

@@ -8,8 +8,12 @@
         --mode terapipe --dp-plan --steps 3 --batch 2 --seq 512
     python -m repro_torch.launch.train --arch deepseek-moe-16b --smoke --device cpu \\
         --mode terapipe --seq 64 --token-slices 4 --steps 3 --batch 2
+    python -m repro_torch.launch.train --arch phi-3-vision-4.2b --smoke --device cpu \\
+        --mode terapipe --seq 64 --token-slices 4 --steps 3 --batch 2
 
-Each step computes the loss and its gradients on a synthetic batch, then
+Each step computes the loss and its gradients on a synthetic batch (with
+the stubbed frontends' random inputs: vlm patch embeddings ahead of
+``--seq - n_patches`` text tokens, enc-dec ``--seq`` frames), then
 AdamW with a cosine schedule updates the parameters, all on ``--device``
 (``cuda`` unless the caller asks for ``cpu``; without a GPU the default
 raises).  ``--use-kernel`` routes attention through the hand-written CUDA
@@ -50,6 +54,7 @@ import time
 import traceback
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager, meta_target
@@ -124,6 +129,21 @@ def plan_slices(cfg, seq: int, n_ranks: int, hw: HardwareSpec, *, microbatches: 
     print(f"[dp-plan] winner: {best[0]} (V={best[2]}, "
           f"{best[1]*1e3:.3f} ms/iter simulated fwd+bwd)")
     return slice_lens, plan
+
+
+def make_data(cfg, batch: int, seq: int, seed: int) -> DataPipeline:
+    """The synthetic batches of ``seq`` positions (reference
+    ``launch/train.py:229-237``), with the stubbed frontends' inputs: vlm
+    patch embeddings, which prefix the token stream, so only ``seq -
+    n_patches`` positions carry text; enc-dec frames, as many as ``seq``."""
+    extra, text_len = None, seq
+    if cfg.family == "vlm":
+        extra = {"patch_embeds": ((cfg.n_patches, cfg.d_model), np.float32)}
+        text_len = seq - cfg.n_patches
+    elif cfg.family == "encdec":
+        extra = {"frames": ((seq, cfg.d_model), np.float32)}
+    return DataPipeline(SyntheticSource(cfg.vocab_size, seed), batch, text_len,
+                        extra_specs=extra)
 
 
 def _promoted_schedule(args) -> str:
@@ -230,7 +250,7 @@ def main(argv=None, history: Optional[list] = None, out: Optional[dict] = None) 
     opt = adamw(cosine_schedule(args.lr, args.warmup, args.steps))
     state = {"params": tree_map(lambda p: p.requires_grad_(True), model.init(args.seed))}
     state["opt_state"] = opt.init(state["params"])
-    data = DataPipeline(SyntheticSource(cfg.vocab_size, args.seed), args.batch, args.seq)
+    data = make_data(cfg, args.batch, args.seq, args.seed)
 
     ckpt = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir else None
     # a checkpoint's tree carries the reference's keys

@@ -1,17 +1,19 @@
 """GQA attention layer (reference: ``repro/models/attention.py``).
 
-Ported modes: ``full`` (causal self-attention over the whole sequence: the
-training forward), ``sliced`` (a token slice at a static context offset
-over [prefix KV cache ++ this slice]: prefill chunks), ``sliced_dyn`` (a
-slice at an offset that is data, attending over the cache rows up to the
-slice's end with an absolute-position mask: the pipeline executor's op) and ``decode`` (one
-new token per row against a fixed-capacity cache, at a scalar or a per-row
-position).  Each mode takes a ``window`` (sliding-window attention: the
-hybrid family's third block), and ``decode`` a ring cache (``ring``: slot
-``pos % L_max``).  Bidirectional attention and cross-attention arrive with
-the enc-dec family.  The kernels compute unwindowed attention, so a windowed
-call takes the plain route whatever ``cfg.use_kernel`` says, as in the
-reference.
+Modes: ``full`` (self-attention over the whole sequence: the training
+forward, causal, or bidirectional for an encoder), ``sliced`` (a token slice
+at a static context offset over [prefix KV cache ++ this slice]: prefill
+chunks), ``sliced_dyn`` (a slice at an offset that is data, attending over
+the cache rows up to the slice's end with an absolute-position mask: the
+pipeline executor's op) and ``decode`` (one new token per row against a
+fixed-capacity cache, at a scalar or a per-row position).  Each mode takes a
+``window`` (sliding-window attention: the hybrid family's third block), and
+``decode`` a ring cache (``ring``: slot ``pos % L_max``).  The enc-dec
+family adds ``attn_cross`` (decoder queries over the encoder's K/V, no RoPE,
+no mask) and ``cross_kv``.  The kernels compute causal, unwindowed
+attention, so a windowed call, the encoder's bidirectional attention and
+the cross-attention take the plain route whatever ``cfg.use_kernel`` says,
+as in the reference (which has no Pallas kernel for them).
 
 The ring decode keeps the reference's stated contract, that prefill then
 decode continues the forward, where the reference does not: its ring mask
@@ -101,6 +103,18 @@ def attention_blocked(q, k, v, *, q_offset: int = 0, q_chunk: int = _Q_CHUNK,
     return torch.cat(outs, dim=1)
 
 
+def attention_blocked_bidir(q, k, v, *, q_chunk: int = _Q_CHUNK) -> torch.Tensor:
+    """Bidirectional attention without the (Sq, Sk) score matrix: a loop
+    over query chunks, each attending every key (GQA-native: k/v
+    (B, Sk, Hkv, hd)); one chunk when ``q_chunk`` does not divide Sq, as in
+    the reference."""
+    sq = q.shape[1]
+    if sq % q_chunk != 0:
+        q_chunk = sq
+    return torch.cat([attention_scores_gqa(q[:, i:i + q_chunk], k, v, mask=None)
+                      for i in range(0, sq, q_chunk)], dim=1)
+
+
 def _out_proj(p, cfg: ModelConfig, out, b, s, dtype):
     return out.reshape(b, s, -1) @ p["wo"].to(dtype)
 
@@ -117,15 +131,17 @@ def _write_rows(cache: torch.Tensor, x: torch.Tensor, start: int) -> torch.Tenso
 
 def attn_full(p, cfg: ModelConfig, x: torch.Tensor, *, causal: bool = True,
               window: int = 0) -> torch.Tensor:
-    """(B, S, D) -> (B, S, D).  Causal self-attention over the whole
-    sequence (the training forward), within ``window`` tokens if set."""
-    if not causal:
-        raise NotImplementedError("bidirectional attention: not yet ported (enc-dec family)")
+    """(B, S, D) -> (B, S, D).  Self-attention over the whole sequence:
+    causal (the training forward), within ``window`` tokens if set, or
+    bidirectional (``causal=False``: the encoder), which has no kernel."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions, rope=cfg.rope_theta > 0)
-    if cfg.use_kernel and window == 0:
+    if cfg.use_kernel and causal and window == 0:
         out = kops.terapipe_attention(q, k, v, ctx_len=0)
+    elif not causal:
+        out = (attention_blocked_bidir(q, k, v) if s > _BLOCKED_THRESHOLD
+               else attention_scores_gqa(q, k, v, mask=None))
     elif s > _BLOCKED_THRESHOLD:
         rep = q.shape[2] // k.shape[2]
         out = attention_blocked(q, repeat_kv(k, rep), repeat_kv(v, rep), window=window)
@@ -273,3 +289,31 @@ def _attn_decode_batched(p, cfg: ModelConfig, x_tok: torch.Tensor, kv_cache,
         out = attention_scores_gqa(q, ck.to(q.dtype), cv.to(q.dtype),
                                    mask=valid[:, None, :])     # (B, 1, Lmax)
     return _out_proj(p, cfg, out, b, 1, x_tok.dtype), (ck, cv)
+
+
+def attn_cross(p, cfg: ModelConfig, x: torch.Tensor, enc_k: torch.Tensor,
+               enc_v: torch.Tensor) -> torch.Tensor:
+    """Cross-attention: the decoder's queries over the encoder's K/V
+    (``cross_kv``), with no RoPE and no mask; plain PyTorch, as the
+    reference's (it has no kernel)."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, -1, cfg.hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+    ek, ev = enc_k.to(q.dtype), enc_v.to(q.dtype)
+    if s > _BLOCKED_THRESHOLD or ek.shape[1] > _BLOCKED_THRESHOLD:
+        out = attention_blocked_bidir(q, ek, ev)
+    else:
+        out = attention_scores_gqa(q, ek, ev, mask=None)
+    return _out_proj(p, cfg, out, b, s, x.dtype)
+
+
+def cross_kv(p, cfg: ModelConfig, enc_out: torch.Tensor):
+    """The encoder output's K and V for one decoder layer's
+    cross-attention, computed once per sequence."""
+    b, s, _ = enc_out.shape
+    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(b, s, -1, cfg.hd)
+    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(b, s, -1, cfg.hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"])
+    return k, v

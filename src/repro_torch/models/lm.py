@@ -1,22 +1,27 @@
-"""Model assembly, the dense, MoE, SSM and hybrid decoder families
-(reference: ``repro/models/lm.py``).
+"""Model assembly: every architecture family behind one API (reference:
+``repro/models/lm.py``).
 
 A model is a stack of *block groups*: homogeneous runs of layers whose
 per-layer parameters are stacked on a leading axis (``_stack_init``).  The
 reference's ``lax.scan`` over that axis is a Python loop over the layer
 index here; there is no ``jit`` — the port runs eagerly.  ``jax.checkpoint``
 is ``torch.utils.checkpoint`` (non-reentrant): under ``cfg.remat`` each
-layer keeps only its input for the backward pass and recomputes the rest.
+layer keeps only its input for the backward pass and recomputes the rest;
+``cfg.remat_policy="dots"`` also keeps the outputs of its plain matrix
+products (``_remat``).
 
-Ported: the dense, MoE, SSM (mamba2), RG-LRU and hybrid super-block
-(rec, rec, windowed attn) groups' ``full``, ``sliced``, ``sliced_dyn`` and
-``decode`` modes, and the group lists of those families
-(``_dense_like_groups``: DeepSeek's first dense layer ``dense0`` before the
-``moe`` group; RecurrentGemma's ``super`` blocks, then the ``tail`` of rec
-blocks); the training surface (``forward``, ``loss``, ``head_loss``,
-``chunked_xent``) and the serving surface (``init``, ``embed``, ``head``,
-``init_caches``, ``prefill``, ``decode_step``) of ``build_model``.  The
-vlm and enc-dec families arrive with later slices.
+The families: dense, vlm (the dense stack behind a prefix of patch
+embeddings at ``ctx == 0``, the loss over the text positions only), MoE
+(DeepSeek's first dense layer ``dense0`` before the ``moe`` group), SSM
+(mamba2), hybrid (RecurrentGemma's ``super`` blocks of (rec, rec, windowed
+attn), then the ``tail`` of rec blocks), each group in the ``full``,
+``sliced``, ``sliced_dyn`` and ``decode`` modes, with the training surface
+(``forward``, ``loss``, ``head_loss``, ``chunked_xent``) and the serving
+surface (``init``, ``embed``, ``head``, ``init_caches``, ``prefill``,
+``decode_step``) of :class:`Model`; and the encoder-decoder
+(:class:`EncDecModel`, whisper's backbone): a bidirectional ``enc`` group,
+not token-sliceable, and a ``dec`` group whose blocks carry the stacked
+encoder K/V beside the activation.
 
 A group's cache is a tree of tensors stacked on a leading layer axis: the
 ``(k, v)`` KV cache, the ``(conv, ssm)`` or ``(conv, h)`` recurrent state
@@ -28,10 +33,11 @@ reference's executor falls back to ``sliced`` the same way).
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_leaves, tree_unflatten
@@ -53,7 +59,9 @@ class BlockGroup(NamedTuple):
     sliced: Callable     # (bp, x, cache, ctx:int) -> (x, cache)
     decode: Callable     # (bp, x, cache, pos) -> (x, cache)
     init_cache: Callable # (batch, max_len, dtype, mode, layers=count) -> stacked cache tree
-    sliced_dyn: Callable # like sliced, ctx may be a 0-d tensor; caches out of place under grad
+    sliced_dyn: Optional[Callable]  # like sliced, ctx may be a 0-d tensor; caches
+    #                                 out of place under grad; None: not pipelined
+    causal: bool = True  # token-sliceable (False: an encoder-style group)
 
 
 def _unstack(tree) -> List[Any]:
@@ -67,16 +75,34 @@ def _unstack(tree) -> List[Any]:
     return list(torch.unbind(tree))
 
 
-def _remat(body: Callable, cfg: ModelConfig) -> Callable:
-    """``jax.checkpoint`` of the reference (``lm.py:74-88``) as non-reentrant
+#: the products ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
+#: keeps: plain ``x @ w`` matrix products (a (B, S, D) activation times a
+#: weight folds to one ``mm``; the port has no biases, so no ``addmm``).
+#: Batched products (``bmm``: the attention scores) and everything else,
+#: the kernels' autograd Function included, run again in the backward pass.
+_DOTS = (torch.ops.aten.mm.default,)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(body: Callable, cfg: Optional[ModelConfig] = None) -> Callable:
+    """``jax.checkpoint`` of the reference (``lm.py:74-79``) as non-reentrant
     ``torch.utils.checkpoint``: the body keeps only its inputs for the
-    backward pass and runs again there to rebuild the rest."""
-    if cfg.remat_policy == "dots":
-        raise NotImplementedError("remat policy 'dots': not yet ported")
+    backward pass and runs again there to rebuild the rest.  With
+    ``cfg.remat_policy == "dots"`` it also keeps every plain matrix
+    product's output (``_DOTS``), which the backward pass then reads in
+    place of recomputing it.  Without ``cfg`` (the pipeline's stages and
+    its pre- and post-groups, as in the reference) the policy does not
+    apply."""
+    if cfg is not None and cfg.remat_policy == "dots":
+        dots = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+        return lambda *args: checkpoint(body, *args, use_reentrant=False, context_fn=dots)
     return lambda *args: checkpoint(body, *args, use_reentrant=False)
 
 
-def _scan_full(group: BlockGroup, bp, x, remat: bool, cfg: ModelConfig):
+def _scan_full(group: BlockGroup, bp, x, remat: bool, cfg: Optional[ModelConfig] = None):
     body = _remat(group.full, cfg) if remat else group.full
     for bp_l in _unstack(bp):
         x = body(bp_l, x)
@@ -168,10 +194,10 @@ def chunked_xent(x: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor,
 
 
 def _dense_like_groups(cfg: ModelConfig) -> List[Tuple[str, int, str]]:
-    """``[(group_name, count, kind)]`` of the block stack (reference
-    ``lm.py:173-194``); the vlm family is not yet ported (ROADMAP Queue 1
-    item 8)."""
-    if cfg.family == "dense":
+    """``[(group_name, count, kind)]`` of a decoder's block stack (reference
+    ``lm.py:173-194``); the enc-dec family builds its own
+    (:class:`EncDecModel`)."""
+    if cfg.family in ("dense", "vlm"):
         return [("blocks", cfg.n_layers, "dense")]
     if cfg.family == "moe":
         first_dense = 1 if cfg.n_shared_experts else 0   # deepseek convention
@@ -188,7 +214,7 @@ def _dense_like_groups(cfg: ModelConfig) -> List[Tuple[str, int, str]]:
         if tail:
             gs.append(("tail", tail, "rec"))
         return gs
-    raise NotImplementedError(f"family {cfg.family!r}: not yet ported (ROADMAP Queue 1 item 8)")
+    raise ValueError(cfg.family)
 
 
 def _kv_zeros(cfg: ModelConfig, layers: int, batch: int, length: int, dtype, device):
@@ -354,9 +380,14 @@ class Model(torch.nn.Module):
         self.device = device
         self.groups: List[BlockGroup] = []
         self._init_groups: Dict[str, Callable] = {}
-        for name, count, kind in _dense_like_groups(cfg):
-            group, self._init_groups[name] = _GROUP_MAKERS[kind](cfg, name, count, device)
+        for group, init in self._make_groups():
             self.groups.append(group)
+            self._init_groups[group.name] = init
+
+    def _make_groups(self) -> List[Tuple[BlockGroup, Callable]]:
+        """``[(group, init_params)]`` of the block stack, in order."""
+        return [_GROUP_MAKERS[kind](self.cfg, name, count, self.device)
+                for name, count, kind in _dense_like_groups(self.cfg)]
 
     @property
     def n_blocks(self) -> int:
@@ -381,8 +412,14 @@ class Model(torch.nn.Module):
         return params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
 
     def embed(self, params, batch, ctx: int = 0) -> torch.Tensor:
+        """The tokens' embeddings; for the vlm family at ``ctx == 0`` the
+        batch's ``patch_embeds`` (B, n_patches, D) come first (the stubbed
+        image frontend's output), so the sequence is patches + text."""
         # gather, then cast: the same values as the reference's cast-then-gather
-        return params["embed"][batch["tokens"].long()].to(self.cfg.dtype)
+        x = params["embed"][batch["tokens"].long()].to(self.cfg.dtype)
+        if self.cfg.family == "vlm" and ctx == 0:
+            x = torch.cat([batch["patch_embeds"].to(self.cfg.dtype), x], dim=1)
+        return x
 
     def head(self, params, x) -> torch.Tensor:
         x = rms_norm(x, params["final_ln"])
@@ -405,19 +442,24 @@ class Model(torch.nn.Module):
         """One token per row at ``pos`` (scalar or per-row (B,); the hybrid's
         ring takes a scalar); the caches are updated in place and
         returned."""
-        x = self.embed(params, batch, ctx=1)
+        x = self.embed(params, batch, ctx=1)      # ctx != 0: no vlm prefix
         x, caches = apply_groups_decode(self, params, x, caches, pos)
         return self.head(params, x), caches
 
     def forward(self, params, batch) -> torch.Tensor:
-        """Float32 logits (B, S, V) of the whole sequence."""
+        """Float32 logits (B, S, V) of the whole sequence (vlm: patches +
+        text)."""
         x = self.embed(params, batch, 0)
         x = apply_groups_full(self, params, x)
         return self.head(params, x)
 
     def head_loss(self, params, x, labels) -> torch.Tensor:
-        """Final norm + chunked LM loss of the stack's output ``x``."""
+        """Final norm + chunked LM loss of the stack's output ``x``; for the
+        vlm family over the text positions only (the first ``n_patches``
+        rows are stripped), so ``labels`` are text-length."""
         x = rms_norm(x, params["final_ln"])
+        if self.cfg.family == "vlm":
+            x = x[:, self.cfg.n_patches:]
         return chunked_xent(x, self._head_weight(params), labels)
 
     def loss(self, params, batch) -> torch.Tensor:
@@ -427,7 +469,164 @@ class Model(torch.nn.Module):
         return self.head_loss(params, x, batch["labels"])
 
 
+def _init_dec_block(gen: torch.Generator, cfg: ModelConfig):
+    """A decoder block: causal self-attention, cross-attention over the
+    encoder's K/V and the FFN, each pre-normed (reference ``lm.py:475-485``)."""
+    zeros = lambda: torch.zeros((cfg.d_model,), dtype=torch.float32, device=gen.device)
+    return {"self": attn_mod.init_attn(gen, cfg), "cross": attn_mod.init_attn(gen, cfg),
+            "ffn": layers_mod.init_ffn(gen, cfg),
+            "ln_self": zeros(), "ln_cross": zeros(), "ln_ffn": zeros()}
+
+
+def _make_enc_group(cfg: ModelConfig, name: str, count: int, device):
+    """The encoder: dense blocks with bidirectional attention (reference
+    ``lm.py:492-499``), full mode only (``causal`` False: not
+    token-sliceable), no cache."""
+    def full(bp, x):
+        return layers_mod.dense_block_full(bp, cfg, x, causal=False)
+
+    def init_params(gen):
+        return _stack_init(lambda g: layers_mod.init_dense_block(g, cfg), gen, count)
+
+    return BlockGroup(name, count, full, None, None, lambda *a, **k: (), None,
+                      causal=False), init_params
+
+
+def _make_dec_group(cfg: ModelConfig, name: str, count: int, device):
+    """The decoder (reference ``lm.py:501-535``): self-attention (causal,
+    cached; the kernels under ``cfg.use_kernel``), cross-attention over one
+    layer's encoder K/V, FFN.  Its blocks take and return ``(x, enc_kv)``
+    in every mode, as the reference's do."""
+    def cross_ffn(bp, x, ek, ev):
+        x = x + attn_mod.attn_cross(bp["cross"], cfg, rms_norm(x, bp["ln_cross"]), ek, ev)
+        return x + layers_mod.ffn(bp["ffn"], rms_norm(x, bp["ln_ffn"]))
+
+    def full(bp, x_and_enc):
+        x, (ek, ev) = x_and_enc
+        x = x + attn_mod.attn_full(bp["self"], cfg, rms_norm(x, bp["ln_self"]))
+        return cross_ffn(bp, x, ek, ev), (ek, ev)
+
+    def with_cache(attn_fn):
+        def block(bp, x_and_enc, cache, arg):
+            x, (ek, ev) = x_and_enc
+            a, cache = attn_fn(bp["self"], cfg, rms_norm(x, bp["ln_self"]), cache, arg)
+            return (cross_ffn(bp, x + a, ek, ev), (ek, ev)), cache
+        return block
+
+    def init_params(gen):
+        return _stack_init(lambda g: _init_dec_block(g, cfg), gen, count)
+
+    return BlockGroup(name, count, full, with_cache(attn_mod.attn_sliced),
+                      with_cache(attn_mod.attn_decode), _kv_cache_init(cfg, count, device),
+                      None), init_params
+
+
+class EncDecModel(Model):
+    """The encoder-decoder, whisper's backbone with its conv frontend
+    stubbed (reference ``_build_encdec``, ``lm.py:488-635``): the batch
+    carries ``frames`` (B, S_enc, D), precomputed frame embeddings.  The
+    ``enc`` group is bidirectional and not token-sliceable (``causal``
+    False: its attention takes the plain route whatever
+    ``cfg.use_kernel``); ``encode`` runs it, then each decoder layer's
+    cross K/V of its output, stacked on the layer axis.  The ``dec`` group's
+    blocks take and return ``(x, enc_kv)``: causal self-attention (the
+    kernels under ``cfg.use_kernel``), then the plain cross-attention.  Its
+    loops over layers are the reference's own, per method."""
+
+    def _make_groups(self):
+        cfg = self.cfg
+        return [_make_enc_group(cfg, "enc", cfg.n_enc_layers or cfg.n_layers, self.device),
+                _make_dec_group(cfg, "dec", cfg.n_dec_layers or cfg.n_layers, self.device)]
+
+    def init(self, seed: int) -> Params:
+        """Random parameters drawn in the reference's order: the encoder's
+        and the decoder's stacks, the embedding, the head."""
+        cfg = self.cfg
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        zeros = lambda: torch.zeros((cfg.d_model,), dtype=torch.float32, device=self.device)
+        groups = {name: init(gen) for name, init in self._init_groups.items()}
+        params: Params = {"groups": groups,
+                          "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model))}
+        params["enc_ln"], params["final_ln"] = zeros(), zeros()
+        params["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size))
+        return params
+
+    def encode(self, params, frames) -> Tuple[torch.Tensor, torch.Tensor]:
+        """frames (B, S_enc, D) -> the cross K/V of every decoder layer,
+        each (n_dec, B, S_enc, Hkv, hd).  The encoder's layers run under
+        plain checkpoint when ``cfg.remat`` (the reference's
+        ``jax.checkpoint``, which the dots policy does not reach)."""
+        enc = self.groups[0]
+        x = frames.to(self.cfg.dtype)
+        body = _remat(enc.full) if self.cfg.remat else enc.full
+        for bp_l in _unstack(params["groups"]["enc"]):
+            x = body(bp_l, x)
+        x = rms_norm(x, params["enc_ln"])
+        kv = [attn_mod.cross_kv(bp_l["cross"], self.cfg, x)
+              for bp_l in _unstack(params["groups"]["dec"])]
+        return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
+
+    def embed(self, params, batch, ctx: int = 0) -> torch.Tensor:
+        return params["embed"][batch["tokens"].long()].to(self.cfg.dtype)
+
+    def _run_dec_full(self, params, x, enc_kv):
+        dec = self.groups[1]
+
+        def body(bp_l, h, ek, ev):
+            return dec.full(bp_l, (h, (ek, ev)))[0]
+        if self.cfg.remat:
+            body = _remat(body)
+        for bp_l, ek, ev in zip(_unstack(params["groups"]["dec"]), *enc_kv):
+            x = body(bp_l, x, ek, ev)
+        return x
+
+    def forward(self, params, batch) -> torch.Tensor:
+        """Float32 logits (B, S, V) of the decoder's tokens."""
+        enc_kv = self.encode(params, batch["frames"])
+        x = self._run_dec_full(params, self.embed(params, batch), enc_kv)
+        return self.head(params, x)
+
+    def head_loss(self, params, x, labels) -> torch.Tensor:
+        return chunked_xent(rms_norm(x, params["final_ln"]), params["lm_head"], labels)
+
+    def loss(self, params, batch) -> torch.Tensor:
+        enc_kv = self.encode(params, batch["frames"])
+        x = self._run_dec_full(params, self.embed(params, batch), enc_kv)
+        return self.head_loss(params, x, batch["labels"])
+
+    def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                    mode: str = "sliced"):
+        """``[enc_kv, dec_kv]``: slot 0 the cross K/V (zeros of ``max_len``
+        rows until ``prefill`` puts ``encode``'s output there, whose length
+        is the number of frames), slot 1 the decoder's self-attention
+        cache."""
+        return [_kv_zeros(self.cfg, self.groups[1].count, batch, max_len, dtype, self.device),
+                self.groups[1].init_cache(batch, max_len, dtype, mode=mode)]
+
+    def prefill(self, params, batch, max_len: int):
+        """Encode ``frames``, then the decoder over ``tokens`` at ctx 0,
+        writing its self-attention cache in place."""
+        enc_kv = self.encode(params, batch["frames"])
+        dec_kv = self.groups[1].init_cache(batch["tokens"].shape[0], max_len, self.cfg.dtype)
+        x = self.embed(params, batch)
+        for i, bp_l in enumerate(_unstack(params["groups"]["dec"])):
+            (x, _), _ = self.groups[1].sliced(bp_l, (x, (enc_kv[0][i], enc_kv[1][i])),
+                                              (dec_kv[0][i], dec_kv[1][i]), 0)
+        return self.head(params, x[:, -1:, :]), [enc_kv, dec_kv]
+
+    def decode_step(self, params, caches, batch, pos):
+        """One token per row at ``pos``; the self-attention cache in place."""
+        enc_kv, dec_kv = caches
+        x = self.embed(params, batch)
+        for i, bp_l in enumerate(_unstack(params["groups"]["dec"])):
+            (x, _), _ = self.groups[1].decode(bp_l, (x, (enc_kv[0][i], enc_kv[1][i])),
+                                              (dec_kv[0][i], dec_kv[1][i]), pos)
+        return self.head(params, x), [enc_kv, dec_kv]
+
+
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
     """Build the model on ``device`` (default ``cuda``; raises without a
-    GPU unless ``device="cpu"`` is asked for)."""
-    return Model(cfg, resolve_device(device))
+    GPU unless ``device="cpu"`` is asked for): :class:`EncDecModel` for the
+    enc-dec family, else :class:`Model`."""
+    cls = EncDecModel if cfg.family == "encdec" else Model
+    return cls(cfg, resolve_device(device))

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.analysis.__main__ import main as analysis_main
 from repro_torch.configs import get_config
+from repro_torch.core import pipeline
 from repro_torch.core.cost_model import measure_kernel_cost_table
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.decode_attention import decode_attention_kernel
@@ -55,8 +56,8 @@ def test_port_imports_nothing_of_jax():
     assert len(PORT_FILES) > 20 and len(PORT_EXAMPLES) == 3
     assert {"checkpoint", "analysis"} <= {p.parent.name for p in PORT_FILES}
     assert {"moe.py", "qwen3_moe.py", "deepseek_moe.py", "ssm.py", "rglru.py", "mamba2.py",
-            "recurrentgemma.py", "phi3_mini.py", "phi4_mini.py",
-            "stablelm_12b.py"} <= {p.name for p in PORT_FILES}
+            "recurrentgemma.py", "phi3_mini.py", "phi4_mini.py", "stablelm_12b.py",
+            "phi3_vision.py", "whisper_medium.py"} <= {p.name for p in PORT_FILES}
     bad = []
     for path in PORT_FILES + PORT_EXAMPLES + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]:
         for mod in _imports(ast.parse(path.read_text())):
@@ -158,13 +159,15 @@ def test_cpu_tensors_take_the_plain_path_without_launches():
 
 
 def test_forward_only_and_unported_surfaces_raise():
-    """What is still to port raises NotImplementedError and names where it
-    is ported: the vlm and enc-dec families, the "dots" remat policy."""
-    for arch in ("whisper-medium", "phi-3-vision-4.2b"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_config(arch, smoke=True)
-    cfg = get_config("gpt3-1b", smoke=True)
-    model = build_model(cfg.replace(remat=True, remat_policy="dots"), device="cpu")
-    with pytest.raises(NotImplementedError, match="dots"):
-        model.loss(model.init(0), {"tokens": torch.zeros(1, 4, dtype=torch.long),
-                                   "labels": torch.zeros(1, 4, dtype=torch.long)})
+    """What the reference refuses, the port refuses too: the enc-dec family
+    cannot be token-sliced (``_group_split``, and so ``--mode terapipe``,
+    raise NotImplementedError), and the explicit-backward schedules take
+    the dense and MoE families only (vlm raises ValueError)."""
+    whisper = build_model(get_config("whisper-medium", smoke=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="not token-sliceable"):
+        pipeline._group_split(whisper)
+    vlm = build_model(get_config("phi-3-vision-4.2b", smoke=True), device="cpu")
+    for schedule, V in (("1f1b", 1), ("zb-h1", 1), ("interleaved-1f1b", 2)):
+        with pytest.raises(ValueError, match="dense/moe"):
+            pipeline.make_terapipe_value_and_grad(
+                vlm, pipeline.TeraPipeConfig(schedule=schedule, virtual_stages=V), 16, 2, 2)
