@@ -150,6 +150,25 @@ result line):
                launches the kernels (the encoder's bidirectional attention
                and the cross-attention take the plain route, as in the
                reference), every count exact;
+ 8c. layout  — the layout layer (launch/steps.py, the configs' SHAPES,
+               skip_reason and input_specs, distributed/collectives.py):
+               abstract_init, abstract_opt_state, every (arch x shape)
+               cell's skip_reason or input_specs and abstract_caches at the
+               decode cells for all 14 FULL configs from models built on
+               the card, memory_allocated unchanged to the byte and the
+               parameter counts the reference's; 3 steps of make_train_step
+               on gpt3-1b (batch 4 x seq 2048, kernels) bit-equal in loss to
+               launch.train.train_step's from the same seed and batches, run
+               one after the other, launches exactly 48 / 24 / 24 per step;
+               qwen3-0.6b make_prefill_step of 2 x 1024 tokens into 2048
+               rows and 16 greedy make_decode_step calls (caches as
+               abstract_caches says, launches 28 and 16 x 28, logits within
+               5e-2 of the plain path); 3 rounds of int8 compression with
+               error feedback over one gpt3-1b step's gradients (1.817 B
+               f32), four leaves' q, scales and residuals bit-equal to the
+               host's, the accumulated sent gradient within each leaf's
+               largest residual of the true one, the bf16 round trip; then
+               examples/serve_decode_torch.py on the card, launches exact;
   9. times   — each kernel at a main-path shape (CUDA events, median of 30
                after warm-up, L2 flushed before each launch) beside its
                bound, its plain version and one PyTorch library call; the
@@ -173,6 +192,7 @@ The line before last is one JSON object {"kernels": [...]}; the last line is
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import math
 import re
@@ -192,7 +212,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.analysis import audit, errors  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import (ARCHS, PAPER_ARCHS, SHAPES, get_config,  # noqa: E402
+                                 input_specs, skip_reason)
 from repro_torch.core.cost_model import (H100, AnalyticCostModel,  # noqa: E402
                                          fit_efficiency_and_floor,
                                          measure_kernel_cost_table)
@@ -200,6 +221,9 @@ from repro_torch.core.pipeline import (TeraPipeConfig,  # noqa: E402
                                        make_terapipe_value_and_grad, value_and_grad)
 from repro_torch.core.schedules import REGISTRY, get_schedule  # noqa: E402
 from repro_torch.data.pipeline import DataPipeline, SyntheticSource  # noqa: E402
+from repro_torch.distributed.collectives import (bf16_compress,  # noqa: E402
+                                                 bf16_decompress, int8_ef_compress,
+                                                 int8_ef_decompress, int8_ef_init)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import CHUNK, decode_attention_kernel  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -212,6 +236,9 @@ from repro_torch.kernels.terapipe_attention import (HEAD_DIMS,  # noqa: E402
 from repro_torch.kernels.terapipe_attention_bwd import (  # noqa: E402
     terapipe_attention_bwd, terapipe_attention_dkv, terapipe_attention_dq)
 from repro_torch.launch import train as train_launch  # noqa: E402
+from repro_torch.launch.steps import (abstract_caches, abstract_init,  # noqa: E402
+                                     abstract_opt_state, make_decode_step,
+                                     make_prefill_step, make_train_step)
 from repro_torch.models import attention, build_model, lm, moe  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.optim.adamw import adamw, cosine_schedule  # noqa: E402
@@ -2205,6 +2232,310 @@ def phase_families() -> dict:
     return counts
 
 
+# --------------------------------------------------------------- 8c. layout
+#: the parameter counts (billions, 3 decimals) of the reference's
+#: abstract_init of these FULL configs
+REF_PARAMS_B = {"gpt3-1b": 1.817, "gpt3-175b": 233.166, "qwen3-moe-235b-a22b": 235.094,
+                "deepseek-moe-16b": 16.378, "mamba2-2.7b": 2.831, "recurrentgemma-9b": 6.519,
+                "whisper-medium": 1.012, "qwen3-0.6b": 0.596}
+LAYOUT_STEPS = 3
+LAYOUT_PROMPT = (2, 1024)       # qwen3-0.6b prefill: batch x tokens
+LAYOUT_MAX_LEN = 2048
+LAYOUT_DECODE_STEPS = 16
+EF_ROUNDS = 3
+#: the leaves whose compression the card and the host must agree on bit for bit
+EF_LEAVES = ("/embed", "/groups/blocks/attn/wq", "/final_ln", "/lm_head")
+
+
+def _gib(tree) -> float:
+    return sum(t.numel() * t.element_size() for _, t in jax_items(tree)) / 2**30
+
+
+def _abstract_structures() -> None:
+    """abstract_init, abstract_opt_state, every (arch x SHAPES) cell's
+    skip_reason or input_specs, and abstract_caches at the decode cells,
+    for every FULL config, from models built on the card: nothing may be
+    allocated."""
+    before = torch.cuda.memory_allocated()
+    t0 = time.time()
+    lines, cells, skipped = [], 0, 0
+    for arch in ARCHS + PAPER_ARCHS:
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        params, _ = abstract_init(model)
+        opt_state = abstract_opt_state(adamw(1e-3), params)
+        leaves = [t for _, t in jax_items(params) + jax_items(opt_state)]
+        if not all(t.is_meta for t in leaves):
+            raise AssertionError(f"{arch}: abstract_init or abstract_opt_state left the meta device")
+        n = sum(t.numel() for t in tree_leaves(params))
+        if arch in REF_PARAMS_B and round(n / 1e9, 3) != REF_PARAMS_B[arch]:
+            raise AssertionError(f"{arch}: {n:,} parameters, the reference has "
+                                 f"{REF_PARAMS_B[arch]} B")
+        cache_gib = {}
+        for name, shape in SHAPES.items():
+            if skip_reason(arch, name) is not None:
+                skipped += 1
+                continue
+            cells += 1
+            batch = input_specs(cfg, shape)
+            if not all(t.is_meta for t in batch.values()):
+                raise AssertionError(f"{arch} x {name}: input_specs left the meta device")
+            if shape.kind == "decode":
+                caches = abstract_caches(model, shape.global_batch, shape.seq_len)
+                if not all(t.is_meta for t in tree_leaves(caches)):
+                    raise AssertionError(f"{arch} x {name}: abstract_caches left the meta device")
+                cache_gib[name] = _gib(caches)
+        lines.append(f"{arch} {n / 1e9:.3f} B ({_gib(params):.1f} GiB f32, AdamW state "
+                     f"{_gib(opt_state):.1f} GiB; decode caches "
+                     + ", ".join(f"{k} {v:.1f} GiB" for k, v in cache_gib.items()) + ")")
+    after = torch.cuda.memory_allocated()
+    log(f"[layout] abstract structures of {len(lines)} FULL configs, {cells} (arch x shape) "
+        f"cells and {skipped} skipped, in {time.time() - t0:.2f} s: " + "; ".join(lines))
+    log(f"[layout] memory_allocated {before} B before, {after} B after")
+    if after != before:
+        raise AssertionError(f"abstract structures allocated {after - before} B on the card")
+
+
+def _train_step_vs_launcher(cfg) -> tuple:
+    """LAYOUT_STEPS steps of make_train_step against launch.train.train_step
+    (the gspmd mode) from one seeded init on the same batches, one run after
+    the other: losses bit-equal, launches of the make_train_step run exact;
+    each run's peak memory above what its state holds.  Returns its counts
+    and the gradient tree of one more step at its final parameters (the
+    moments freed first)."""
+    model = build_model(cfg.replace(use_kernel=True))
+    data = train_launch.make_data(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)
+    batch = lambda i: {k: torch.from_numpy(a).cuda() for k, a in data.batch_at(i).items()}
+    make_opt = lambda: adamw(cosine_schedule(3e-4, 1, LAYOUT_STEPS))
+    peaks = {}
+
+    def peak_above(label, base):
+        torch.cuda.synchronize()
+        peaks[label] = (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    opt = make_opt()
+    state = {"params": tree_map(lambda p: p.requires_grad_(True), model.init(seed=0))}
+    state["opt_state"] = opt.init(state["params"])
+    vg = value_and_grad(model.loss)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    want = [train_launch.train_step(vg, opt, state, batch(i)) for i in range(LAYOUT_STEPS)]
+    peak_above("launch.train.train_step", base)
+    del state
+    torch.cuda.empty_cache()
+
+    opt = make_opt()
+    params = model.init(seed=0)
+    opt_state = opt.init(params)
+    step = make_train_step(model, opt)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = []
+    for i in range(LAYOUT_STEPS):
+        params, opt_state, loss = step(params, opt_state, batch(i))
+        got.append(loss)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) / LAYOUT_STEPS * 1e3
+    peak_above("make_train_step", base)
+    counts = {name: fn.launches for name, fn in COUNTERS.items()}
+    per_step = _launches_per_step(cfg, 1)
+    want_counts = {k: per_step.get(k, 0) * LAYOUT_STEPS for k in COUNTERS}
+    log(f"[layout] {_card()}; {cfg.name} FULL width, {cfg.n_layers} layers, batch "
+        f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, bf16, kernels: make_train_step losses "
+        f"{[x.item() for x in got]}, launch.train.train_step {[x.item() for x in want]}; "
+        f"{ms:.1f} ms/step (host clock, all {LAYOUT_STEPS} steps); peak allocated above "
+        f"the state's {base / 2**30:.2f} GiB: "
+        + ", ".join(f"{k} {v:.2f} GiB" for k, v in peaks.items())
+        + f"; launches {counts} (remat formula: {per_step} per step)")
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("make_train_step's losses are not bit-equal to launch.train's")
+    if counts != want_counts:
+        raise AssertionError(f"make_train_step launches {counts} != {want_counts}")
+    del opt_state
+    torch.cuda.empty_cache()
+    _, grads = vg(tree_map(lambda p: p.requires_grad_(True), params), batch(LAYOUT_STEPS))
+    del params
+    torch.cuda.empty_cache()
+    return counts, grads
+
+
+def _compression(grads) -> None:
+    """EF_ROUNDS rounds of int8 compression with error feedback over a
+    gradient tree on the card: EF_LEAVES' q, scales and residual bit-equal
+    to the same rounds on the host; the accumulated sent gradient within
+    each leaf's largest residual of the accumulated true one; the bf16
+    round trip within bf16's rounding and bit-equal to the host's."""
+    n = sum(g.numel() for g in tree_leaves(grads))
+    leaves = dict(tree_items(grads))
+    host = {p: leaves[p].cpu() for p in EF_LEAVES}
+    state, host_state = int8_ef_init(grads), int8_ef_init(host)
+    total = tree_map(torch.zeros_like, grads)
+    ms = []
+    for r in range(EF_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        q, scales, state = int8_ef_compress(grads, state)
+        sent = int8_ef_decompress(q, scales)
+        torch.cuda.synchronize()
+        ms.append((time.time() - t0) * 1e3)
+        for t, s in zip(tree_leaves(total), tree_leaves(sent)):
+            t.add_(s)
+        del sent
+        hq, hs, host_state = int8_ef_compress(host, host_state)
+        qd, sd, rd = dict(tree_items(q)), dict(tree_items(scales)), dict(tree_items(state.residual))
+        for p in EF_LEAVES:
+            for what, card, h in (("q", qd[p], hq[p]), ("scale", sd[p], hs[p]),
+                                  ("residual", rd[p], host_state.residual[p])):
+                if not torch.equal(card.cpu(), h):
+                    raise AssertionError(f"int8 round {r}: {p} {what} differs card vs host")
+        del q, scales
+    worst = 0.0
+    for (p, t), g, res in zip(tree_items(total), tree_leaves(grads),
+                              tree_leaves(state.residual)):
+        err = (t - EF_ROUNDS * g).abs().max().item()
+        bound = res.abs().max().item() + 1e-6
+        worst = max(worst, err / bound)
+        if err > bound:
+            raise AssertionError(f"int8 error feedback: {p} drifts {err:.3g} > {bound:.3g}")
+    del total, state
+    torch.cuda.synchronize()
+    t0 = time.time()
+    back = bf16_decompress(bf16_compress(grads))
+    torch.cuda.synchronize()
+    bf16_ms = (time.time() - t0) * 1e3
+    rel = max(((b - g).abs() / g.abs().clamp_min(1e-30)).max().item()
+              for b, g in zip(tree_leaves(back), tree_leaves(grads)))
+    host_back = bf16_decompress(bf16_compress(host))
+    if not all(torch.equal(dict(tree_items(back))[p].cpu(), host_back[p]) for p in EF_LEAVES):
+        raise AssertionError("bf16 round trip differs card vs host")
+    # bytes per element, each input read once and each output written
+    # once: compress reads g and the residual and writes q and the new
+    # residual (4 + 4 + 1 + 4), decompress reads q and writes f32 (1 + 4);
+    # the bf16 round trip reads 4 and writes 2, then reads 2 and writes 4
+    ef_bound, bf16_bound = bound_ms(0.0, 18 * n)[0], bound_ms(0.0, 12 * n)[0]
+    log(f"[layout] {_card()}; gradient compression of one gpt3-1b step's gradients ({n:,} "
+        f"f32 values, {_gib(grads):.2f} GiB): int8 with error feedback "
+        f"{', '.join(f'{x:.1f}' for x in ms)} ms per round (compress + decompress, host "
+        f"clock; bound {ef_bound:.2f} ms by bytes); {len(EF_LEAVES)} leaves' q, scales and "
+        f"residuals bit-equal to the host's "
+        f"over {EF_ROUNDS} rounds; accumulated sent vs true gradient at most {worst:.3f} of "
+        f"each leaf's largest residual; bf16 round trip {bf16_ms:.1f} ms (bound "
+        f"{bf16_bound:.2f}), largest relative "
+        f"error {rel:.3g} (bound 2^-8), bit-equal to the host's")
+    if rel > 2 ** -8:
+        raise AssertionError(f"bf16 round trip: relative error {rel:.3g}")
+
+
+def _serve_steps(cfg) -> dict:
+    """make_prefill_step of LAYOUT_PROMPT into LAYOUT_MAX_LEN rows, then
+    LAYOUT_DECODE_STEPS greedy make_decode_step calls through the kernels:
+    the caches' shapes and dtypes those of abstract_caches, launches exact
+    (phase 3's formula: one prefill chunk x layers, decode steps x layers),
+    every logit row within LOGIT_REL_BOUND of the plain path's on the same
+    tokens.  Returns the counts."""
+    model = build_model(cfg.replace(use_kernel=True))
+    params = tree_map(lambda a: a.to(torch.bfloat16), model.init(seed=0))
+    b, s = LAYOUT_PROMPT
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")}
+    want = abstract_caches(model, b, LAYOUT_MAX_LEN, cfg.dtype)
+
+    def run(m, forced=None):
+        prefill, decode = make_prefill_step(m, LAYOUT_MAX_LEN), make_decode_step(m)
+        logits, caches = prefill(params, prompt)
+        structs = [(tuple(t.shape), t.dtype) for t in tree_leaves(caches)]
+        rows, toks = [logits[:, -1]], []
+        for i in range(LAYOUT_DECODE_STEPS):
+            toks.append(forced[i] if forced is not None else rows[-1].argmax(-1))
+            logits, caches = decode(params, caches, {"tokens": toks[-1][:, None]}, s + i)
+            rows.append(logits[:, -1])
+        return rows, toks, structs
+
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rows, toks, structs = run(model)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {name: fn.launches for name, fn in COUNTERS.items()}
+    want_counts = {k: 0 for k in COUNTERS}
+    want_counts.update(terapipe_attention_fwd=cfg.n_layers,
+                       decode_attention=cfg.n_layers * LAYOUT_DECODE_STEPS)
+    if counts != want_counts:
+        raise AssertionError(f"prefill/decode steps: launches {counts} != {want_counts}")
+    if structs != [(tuple(t.shape), t.dtype) for t in tree_leaves(want)]:
+        raise AssertionError(f"prefill caches {structs} differ from abstract_caches")
+    plain_rows, _, _ = run(build_model(cfg), forced=toks)
+    worst = 0.0
+    for i, (a, p) in enumerate(zip(rows, plain_rows)):
+        if not torch.isfinite(a).all() or a.shape != (b, cfg.vocab_size):
+            raise AssertionError(f"step {i}: non-finite or misshapen logits")
+        worst = max(worst, ((a - p).abs().amax(-1) / p.abs().amax(-1)).max().item())
+    log(f"[layout] {_card()}; {cfg.name} FULL width, {cfg.n_layers} layers: make_prefill_step "
+        f"of {b} x {s} tokens into {LAYOUT_MAX_LEN} rows then {LAYOUT_DECODE_STEPS} greedy "
+        f"make_decode_step calls in {wall * 1e3:.1f} ms; caches {structs[0]} x "
+        f"{len(structs)} as abstract_caches; logits vs the plain path on the same tokens, "
+        f"worst max abs err / max |logit| per row {worst:.3g} (bound {LOGIT_REL_BOUND}); "
+        f"launches {counts}")
+    if worst > LOGIT_REL_BOUND:
+        raise AssertionError(f"prefill/decode steps: kernels and plain path disagree ({worst:.3g})")
+    return counts
+
+
+def _serve_example() -> dict:
+    """examples/serve_decode_torch.py on the card: launches exact (the
+    engine's prefill chunks and decode rounds x its layers, whisper's
+    decoder self-attention in its prefill and decode steps)."""
+    spec = importlib.util.spec_from_file_location(
+        "serve_decode_torch", ROOT / "examples" / "serve_decode_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    out = example.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in COUNTERS.items()}
+    eng, dec = out["engine"], get_config("whisper-medium", smoke=True).n_dec_layers
+    want = {k: 0 for k in COUNTERS}
+    want.update(terapipe_attention_fwd=eng["prefill_chunks"] * eng["layers"] + dec,
+                decode_attention=eng["decode_rounds"] * eng["layers"]
+                + dec * (len(out["whisper-medium"][0]) - 1))
+    log(f"[layout] examples/serve_decode_torch.py on the card: engine tokens equal the "
+        f"single request's; launches {counts}")
+    if counts != want:
+        raise AssertionError(f"serve_decode_torch: launches {counts} != {want}")
+    return counts
+
+
+def phase_layout() -> dict:
+    """The layout layer (launch/steps.py, configs' SHAPES and input_specs,
+    distributed/collectives.py) at full width: the abstract structures of
+    every FULL config without allocating, make_train_step on gpt3-1b
+    bit-equal to launch.train's step, make_prefill_step and
+    make_decode_step on qwen3-0.6b, gradient compression on one gpt3-1b
+    step's gradients, and examples/serve_decode_torch.py.  Returns the
+    counts of its runs."""
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    _abstract_structures()
+    counts = {}
+    counts["layout make_train_step"], grads = _train_step_vs_launcher(_gpt3_1b())
+    _compression(grads)
+    del grads
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3-0.6b")
+    counts["layout prefill/decode steps"] = _serve_steps(cfg)
+    torch.cuda.empty_cache()
+    counts["layout serve example"] = _serve_example()
+    log(f"[layout] {_card()}; phase 8c took {time.time() - t0:.1f} s")
+    return counts
+
+
 # --------------------------------------------------------------- 9. times
 def phase_times(errs: dict, launches: dict) -> list:
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2445,6 +2776,8 @@ def main() -> int:
     done("state")
     paths.update(phase_families())
     done("families")
+    paths.update(phase_layout())
+    done("layout")
     launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in COUNTERS}
     log(f"[launches] main paths: {paths}")
     rows = phase_times(errs, launches)

@@ -2,7 +2,9 @@
 
 There is no silent fallback: an entry point runs on ``cuda`` unless its
 caller passes ``device="cpu"``, and asking for CUDA on a host without a
-GPU raises.  Resolving a CUDA device also turns TF32 off for matmuls and
+GPU raises.  ``meta`` (shapes and dtypes without storage: the abstract
+structures of ``launch/steps.py``) is taken only when the caller names
+it.  Resolving a CUDA device also turns TF32 off for matmuls and
 cuDNN, so float32 runs keep full float32 precision (the tolerance the
 parity tests hold against the JAX reference assumes it).
 """
@@ -14,8 +16,9 @@ DEFAULT_DEVICE = "cuda"
 
 
 def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
-    """``device`` (str or ``torch.device``) -> ``torch.device``; raises
-    ``RuntimeError`` for a CUDA device when no GPU is present."""
+    """``device`` (str or ``torch.device``: cuda, cpu or meta) ->
+    ``torch.device``; raises ``RuntimeError`` for a CUDA device when no
+    GPU is present."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -24,6 +27,6 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
                 f"pass device='cpu' to run the plain PyTorch path")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {device!r} (cuda, cpu or meta)")
     return dev

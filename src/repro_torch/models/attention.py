@@ -55,6 +55,16 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig):
     return p
 
 
+def attn_specs(cfg: ModelConfig):
+    """The logical axes of :func:`init_attn`'s leaves (reference
+    ``init_attn``'s second value)."""
+    s = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+         "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    if cfg.qk_norm:
+        s["q_norm"] = s["k_norm"] = (None,)
+    return s
+
+
 def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                  rope: bool = True):
     """Head counts are derived from the weight shapes, not cfg (the

@@ -70,8 +70,27 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# Initializers (same distributions as the reference; torch.Generator keys)
+# Initializers (same distributions as the reference; torch.Generator keys).
+# Every leaf is made on ``gen.device``.
 # ---------------------------------------------------------------------------
+class MetaDraws(torch.Generator):
+    """A CPU generator whose ``device`` says ``meta``: the initializers
+    draw on the meta device through it, so every leaf gets its shape and
+    dtype and no storage (torch has no generator on ``meta``; a draw there
+    takes a CPU one and reads nothing from it)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def make_generator(device: torch.device, seed: int) -> torch.Generator:
+    """The seeded generator of an init on ``device``: a ``torch.Generator``
+    there, or :class:`MetaDraws` for ``meta``."""
+    gen = MetaDraws() if device.type == "meta" else torch.Generator(device=device)
+    return gen.manual_seed(seed)
+
+
 def _randn(gen: torch.Generator, shape) -> torch.Tensor:
     return torch.randn(tuple(shape), generator=gen, device=gen.device,
                        dtype=torch.float32)

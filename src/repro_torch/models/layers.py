@@ -18,6 +18,11 @@ def init_ffn(gen: torch.Generator, cfg: ModelConfig, d_ff: int = 0):
     }
 
 
+def ffn_specs(cfg: ModelConfig):
+    """The logical axes of :func:`init_ffn`'s leaves."""
+    return {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"), "w_down": ("ff", "embed")}
+
+
 def ffn(p, x: torch.Tensor) -> torch.Tensor:
     h = swiglu(x @ p["w_gate"].to(x.dtype), x @ p["w_up"].to(x.dtype))
     return h @ p["w_down"].to(x.dtype)
@@ -31,6 +36,12 @@ def init_dense_block(gen: torch.Generator, cfg: ModelConfig):
         "ln_attn": zeros(),
         "ln_ffn": zeros(),
     }
+
+
+def dense_block_specs(cfg: ModelConfig):
+    """The logical axes of :func:`init_dense_block`'s leaves."""
+    return {"attn": attn_mod.attn_specs(cfg), "ffn": ffn_specs(cfg),
+            "ln_attn": (None,), "ln_ffn": (None,)}
 
 
 def dense_block_full(p, cfg: ModelConfig, x: torch.Tensor, *, causal: bool = True,

@@ -18,7 +18,9 @@ attn), then the ``tail`` of rec blocks), each group in the ``full``,
 ``sliced``, ``sliced_dyn`` and ``decode`` modes, with the training surface
 (``forward``, ``loss``, ``head_loss``, ``chunked_xent``) and the serving
 surface (``init``, ``embed``, ``head``, ``init_caches``, ``prefill``,
-``decode_step``) of :class:`Model`; and the encoder-decoder
+``decode_step``) of :class:`Model`, and ``specs``, the logical axes of
+``init``'s leaves that the reference's ``init`` returns beside them; and
+the encoder-decoder
 (:class:`EncDecModel`, whisper's backbone): a bidirectional ``enc`` group,
 not token-sliceable, and a ``dec`` group whose blocks carry the stacked
 encoder K/V beside the activation.
@@ -47,7 +49,7 @@ from . import layers as layers_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
-from .common import ModelConfig, embed_init, rms_norm
+from .common import ModelConfig, embed_init, make_generator, rms_norm
 
 Params = Dict[str, Any]
 
@@ -171,6 +173,14 @@ def _stack_init(init_one: Callable, gen: torch.Generator, count: int):
     return stack(layers)
 
 
+def _stack_specs(spec_one):
+    """One layer's logical axes with the stacked layer axis (no logical
+    axis: ``None``) in front of each leaf's (reference ``_stack_init``)."""
+    if isinstance(spec_one, dict):
+        return {k: _stack_specs(v) for k, v in spec_one.items()}
+    return (None,) + tuple(spec_one)
+
+
 def _xent_chunk(xc, w_head, lc):
     logits = (xc @ w_head.to(xc.dtype)).float()
     logz = torch.logsumexp(logits, dim=-1)
@@ -245,8 +255,9 @@ def _make_dense_group(cfg: ModelConfig, name: str, count: int, device):
     def init_params(gen):
         return _stack_init(lambda g: layers_mod.init_dense_block(g, cfg), gen, count)
 
-    return BlockGroup(name, count, full, sliced, decode, _kv_cache_init(cfg, count, device),
-                      sliced_dyn), init_params
+    return (BlockGroup(name, count, full, sliced, decode, _kv_cache_init(cfg, count, device),
+                       sliced_dyn), init_params,
+            _stack_specs(layers_mod.dense_block_specs(cfg)))
 
 
 def _make_moe_group(cfg: ModelConfig, name: str, count: int, device):
@@ -272,13 +283,16 @@ def _make_moe_group(cfg: ModelConfig, name: str, count: int, device):
     def init_params(gen):
         return _stack_init(init_one, gen, count)
 
-    return BlockGroup(name, count, full, with_cache(attn_mod.attn_sliced),
-                      with_cache(attn_mod.attn_decode), _kv_cache_init(cfg, count, device),
-                      with_cache(attn_mod.attn_sliced_dyn)), init_params
+    specs = {"attn": attn_mod.attn_specs(cfg), "moe": moe_mod.moe_specs(cfg),
+             "ln_attn": (None,), "ln_ffn": (None,)}
+    return (BlockGroup(name, count, full, with_cache(attn_mod.attn_sliced),
+                       with_cache(attn_mod.attn_decode), _kv_cache_init(cfg, count, device),
+                       with_cache(attn_mod.attn_sliced_dyn)), init_params,
+            _stack_specs(specs))
 
 
 def _make_state_group(cfg: ModelConfig, name: str, count: int, device, *, block, step,
-                      init_state, init_block):
+                      init_state, init_block, block_specs):
     """Recurrent blocks whose cache is the state they carry, f32 whatever
     ``dtype``: Mamba-2 (``(conv, ssm)``, reference ``lm.py:270-288``) or
     RG-LRU, the hybrid's tail (``(conv, h)``, ``lm.py:291-307``).  ``block``
@@ -298,7 +312,8 @@ def _make_state_group(cfg: ModelConfig, name: str, count: int, device, *, block,
     def init_params(gen):
         return _stack_init(lambda g: init_block(g, cfg), gen, count)
 
-    return BlockGroup(name, count, full, sliced, decode, init_cache, sliced), init_params
+    return (BlockGroup(name, count, full, sliced, decode, init_cache, sliced), init_params,
+            _stack_specs(block_specs(cfg)))
 
 
 def _make_super_group(cfg: ModelConfig, name: str, count: int, device):
@@ -345,13 +360,15 @@ def _make_super_group(cfg: ModelConfig, name: str, count: int, device):
     def init_params(gen):
         return _stack_init(init_one, gen, count)
 
-    return BlockGroup(name, count, full,
-                      with_cache(rglru_mod.rec_block, layers_mod.dense_block_sliced),
-                      with_cache(rglru_mod.rec_block_decode, layers_mod.dense_block_decode,
-                                 ring=True),
-                      init_cache,
-                      with_cache(rglru_mod.rec_block, layers_mod.dense_block_sliced_dyn)
-                      ), init_params
+    specs = {f"rec{i}": rglru_mod.rec_block_specs(cfg) for i in range(n_rec)}
+    specs["attn"] = layers_mod.dense_block_specs(cfg)
+    return (BlockGroup(name, count, full,
+                       with_cache(rglru_mod.rec_block, layers_mod.dense_block_sliced),
+                       with_cache(rglru_mod.rec_block_decode, layers_mod.dense_block_decode,
+                                  ring=True),
+                       init_cache,
+                       with_cache(rglru_mod.rec_block, layers_mod.dense_block_sliced_dyn)),
+            init_params, _stack_specs(specs))
 
 
 _GROUP_MAKERS = {
@@ -359,11 +376,12 @@ _GROUP_MAKERS = {
     "moe": _make_moe_group,
     "ssm": functools.partial(_make_state_group, block=ssm_mod.mamba2_block,
                              step=ssm_mod.mamba2_decode, init_state=ssm_mod.init_ssm_state,
-                             init_block=ssm_mod.init_mamba2),
+                             init_block=ssm_mod.init_mamba2, block_specs=ssm_mod.mamba2_specs),
     "rec": functools.partial(_make_state_group, block=rglru_mod.rec_block,
                              step=rglru_mod.rec_block_decode,
                              init_state=rglru_mod.init_rec_state,
-                             init_block=rglru_mod.init_rec_block),
+                             init_block=rglru_mod.init_rec_block,
+                             block_specs=rglru_mod.rec_block_specs),
     "super": _make_super_group,
 }
 
@@ -372,7 +390,10 @@ class Model(torch.nn.Module):
     """The decoder: block groups plus embedding and head.  Parameters live
     outside the module as the reference's nested dict (``init``), so the
     JAX package's parameters convert leaf by leaf
-    (:func:`repro_torch.weights.params_from_jax`)."""
+    (:func:`repro_torch.weights.params_from_jax`); their logical axes are
+    a tree of the same keys (``specs``).  On the ``meta`` device ``init``
+    gives every leaf's shape and dtype without storage
+    (``launch/steps.py::abstract_init``)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
@@ -380,12 +401,14 @@ class Model(torch.nn.Module):
         self.device = device
         self.groups: List[BlockGroup] = []
         self._init_groups: Dict[str, Callable] = {}
-        for group, init in self._make_groups():
+        self._group_specs: Dict[str, Any] = {}
+        for group, init, specs in self._make_groups():
             self.groups.append(group)
             self._init_groups[group.name] = init
+            self._group_specs[group.name] = specs
 
-    def _make_groups(self) -> List[Tuple[BlockGroup, Callable]]:
-        """``[(group, init_params)]`` of the block stack, in order."""
+    def _make_groups(self) -> List[Tuple[BlockGroup, Callable, Any]]:
+        """``[(group, init_params, specs)]`` of the block stack, in order."""
         return [_GROUP_MAKERS[kind](self.cfg, name, count, self.device)
                 for name, count, kind in _dense_like_groups(self.cfg)]
 
@@ -399,7 +422,7 @@ class Model(torch.nn.Module):
         in the reference's order: the embedding, each group in stack order,
         the head."""
         cfg = self.cfg
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = make_generator(self.device, seed)
         params: Params = {"embed": embed_init(gen, (cfg.vocab_size, cfg.d_model))}
         params["groups"] = {name: init(gen) for name, init in self._init_groups.items()}
         params["final_ln"] = torch.zeros((cfg.d_model,), dtype=torch.float32,
@@ -407,6 +430,18 @@ class Model(torch.nn.Module):
         if not cfg.tie_embeddings:
             params["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size))
         return params
+
+    def specs(self) -> Params:
+        """The logical axes of every leaf of ``init``'s tree, the tree the
+        reference's ``init`` returns beside its parameters: per leaf a
+        tuple of axis names (``"embed"``, ``"heads"``, ``"ff"``, ...) or
+        ``None`` per dimension; stacked layers lead with ``None``.  Drawn
+        from ``cfg`` alone."""
+        specs: Params = {"embed": ("vocab", "embed"), "groups": dict(self._group_specs),
+                         "final_ln": (None,)}
+        if not self.cfg.tie_embeddings:
+            specs["lm_head"] = ("embed", "vocab")
+        return specs
 
     def _head_weight(self, params):
         return params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
@@ -478,6 +513,13 @@ def _init_dec_block(gen: torch.Generator, cfg: ModelConfig):
             "ln_self": zeros(), "ln_cross": zeros(), "ln_ffn": zeros()}
 
 
+def _dec_block_specs(cfg: ModelConfig):
+    """The logical axes of :func:`_init_dec_block`'s leaves."""
+    return {"self": attn_mod.attn_specs(cfg), "cross": attn_mod.attn_specs(cfg),
+            "ffn": layers_mod.ffn_specs(cfg),
+            "ln_self": (None,), "ln_cross": (None,), "ln_ffn": (None,)}
+
+
 def _make_enc_group(cfg: ModelConfig, name: str, count: int, device):
     """The encoder: dense blocks with bidirectional attention (reference
     ``lm.py:492-499``), full mode only (``causal`` False: not
@@ -488,8 +530,8 @@ def _make_enc_group(cfg: ModelConfig, name: str, count: int, device):
     def init_params(gen):
         return _stack_init(lambda g: layers_mod.init_dense_block(g, cfg), gen, count)
 
-    return BlockGroup(name, count, full, None, None, lambda *a, **k: (), None,
-                      causal=False), init_params
+    return (BlockGroup(name, count, full, None, None, lambda *a, **k: (), None, causal=False),
+            init_params, _stack_specs(layers_mod.dense_block_specs(cfg)))
 
 
 def _make_dec_group(cfg: ModelConfig, name: str, count: int, device):
@@ -516,9 +558,9 @@ def _make_dec_group(cfg: ModelConfig, name: str, count: int, device):
     def init_params(gen):
         return _stack_init(lambda g: _init_dec_block(g, cfg), gen, count)
 
-    return BlockGroup(name, count, full, with_cache(attn_mod.attn_sliced),
-                      with_cache(attn_mod.attn_decode), _kv_cache_init(cfg, count, device),
-                      None), init_params
+    return (BlockGroup(name, count, full, with_cache(attn_mod.attn_sliced),
+                       with_cache(attn_mod.attn_decode), _kv_cache_init(cfg, count, device),
+                       None), init_params, _stack_specs(_dec_block_specs(cfg)))
 
 
 class EncDecModel(Model):
@@ -542,7 +584,7 @@ class EncDecModel(Model):
         """Random parameters drawn in the reference's order: the encoder's
         and the decoder's stacks, the embedding, the head."""
         cfg = self.cfg
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = make_generator(self.device, seed)
         zeros = lambda: torch.zeros((cfg.d_model,), dtype=torch.float32, device=self.device)
         groups = {name: init(gen) for name, init in self._init_groups.items()}
         params: Params = {"groups": groups,
@@ -550,6 +592,11 @@ class EncDecModel(Model):
         params["enc_ln"], params["final_ln"] = zeros(), zeros()
         params["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size))
         return params
+
+    def specs(self) -> Params:
+        """The logical axes of ``init``'s tree (:meth:`Model.specs`)."""
+        return {"groups": dict(self._group_specs), "embed": ("vocab", "embed"),
+                "enc_ln": (None,), "final_ln": (None,), "lm_head": ("embed", "vocab")}
 
     def encode(self, params, frames) -> Tuple[torch.Tensor, torch.Tensor]:
         """frames (B, S_enc, D) -> the cross K/V of every decoder layer,
@@ -626,7 +673,8 @@ class EncDecModel(Model):
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
     """Build the model on ``device`` (default ``cuda``; raises without a
-    GPU unless ``device="cpu"`` is asked for): :class:`EncDecModel` for the
-    enc-dec family, else :class:`Model`."""
+    GPU unless ``device="cpu"`` is asked for; ``"meta"`` when asked for,
+    for shapes without storage): :class:`EncDecModel` for the enc-dec
+    family, else :class:`Model`."""
     cls = EncDecModel if cfg.family == "encdec" else Model
     return cls(cfg, resolve_device(device))

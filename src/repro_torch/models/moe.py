@@ -36,7 +36,7 @@ import math
 import torch
 
 from .common import ModelConfig, dense_init, swiglu
-from .layers import ffn as dense_ffn, init_ffn
+from .layers import ffn as dense_ffn, ffn_specs, init_ffn
 
 #: The routing record, off (``None``) by default.  Set to a list, every
 #: routing call appends ``(router, topi, keep, grad)``: the layer's router
@@ -59,6 +59,17 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig):
     if cfg.n_shared_experts:
         p["shared"] = init_ffn(gen, cfg, d_ff=cfg.n_shared_experts * dff)
     return p
+
+
+def moe_specs(cfg: ModelConfig):
+    """The logical axes of :func:`init_moe`'s leaves: the expert axis
+    leads each expert's weights; the router's expert columns and the
+    experts' own width carry no logical axis (as the reference's)."""
+    s = {"router": ("embed", None), "w_gate": ("experts", "embed", None),
+         "w_up": ("experts", "embed", None), "w_down": ("experts", None, "embed")}
+    if cfg.n_shared_experts:
+        s["shared"] = ffn_specs(cfg)
+    return s
 
 
 def _pad_row(a: torch.Tensor) -> torch.Tensor:

@@ -47,6 +47,14 @@ def init_rec_block(gen: torch.Generator, cfg: ModelConfig):
     }
 
 
+def rec_block_specs(cfg: ModelConfig):
+    """The logical axes of :func:`init_rec_block`'s leaves."""
+    return {"ln": (None,), "w_x": ("embed", "ff"), "w_y": ("embed", "ff"),
+            "conv_w": (None, "ff"), "conv_b": ("ff",), "w_a": ("embed", "ff"),
+            "b_a": ("ff",), "w_i": ("embed", "ff"), "b_i": ("ff",), "lam": ("ff",),
+            "w_out": ("ff", "embed")}
+
+
 def _rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor]):
     """h_t = a_t h_{t-1} + b_t over axis 1.  a, b: (B, L, D); h0: (B, D)|None.
 

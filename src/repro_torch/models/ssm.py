@@ -122,6 +122,13 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig):
     }
 
 
+def mamba2_specs(cfg: ModelConfig):
+    """The logical axes of :func:`init_mamba2`'s leaves."""
+    return {"in_proj": ("embed", "ff"), "conv_w": (None, "ff"), "conv_b": ("ff",),
+            "A_log": ("heads",), "D": ("heads",), "dt_bias": ("heads",),
+            "norm": ("ff",), "out_proj": ("ff", "embed"), "ln": (None,)}
+
+
 def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
     d_inner = cfg.ssm_expand * cfg.d_model
     N = cfg.ssm_state

@@ -1,8 +1,9 @@
 """The port's examples run on the CPU at a small size, in process:
 ``examples/dp_planner_demo_torch.py`` prints the JAX demo's plan (the
-planning layer is a numpy copy), ``quickstart_torch.py`` trains, and
+planning layer is a numpy copy), ``quickstart_torch.py`` trains,
 ``terapipe_train_torch.py`` trains through the pipeline, checkpoints, and
-resumes from its checkpoint."""
+resumes from its checkpoint, and ``serve_decode_torch.py`` serves through
+the engine and the prefill and decode steps."""
 import importlib.util
 from pathlib import Path
 
@@ -46,3 +47,15 @@ def test_terapipe_train_checkpoints_and_resumes(tmp_path, capsys):
     assert "resumed at step 1" in capsys.readouterr().out
     assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000001", "step_00000002"]
     assert 8.0 < loss < 10.0
+
+
+def test_serve_decode_serves_every_family(capsys):
+    out = _load("serve_decode_torch").main(["--device", "cpu"])
+    eng = out["engine"]
+    assert eng["tokens"] == eng["solo"] and len(eng["tokens"]) == 16
+    assert eng["prefill_chunks"] == 5 and eng["decode_rounds"] > 15
+    for arch in ("mamba2-2.7b", "recurrentgemma-9b", "whisper-medium"):
+        assert len(out[arch]) == 4 and all(len(row) == 16 for row in out[arch])
+    printed = capsys.readouterr().out
+    assert "single-request degenerate case matches" in printed
+    assert printed.rstrip().endswith("serving OK")

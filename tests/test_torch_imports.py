@@ -6,7 +6,7 @@
 * every entry point (serving, the training modes, the kernel cost table,
   the audit command, the examples) raises when no GPU is present and the
   caller did not ask for ``device="cpu"``; the kernel wrappers refuse CPU
-  tensors;
+  tensors; a model is on ``meta`` only when its caller names it;
 * CPU tensors take the plain path and leave both launch counters at 0.
 """
 import ast
@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.analysis.__main__ import main as analysis_main
 from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
 from repro_torch.core import pipeline
 from repro_torch.core.cost_model import measure_kernel_cost_table
 from repro_torch.kernels import _build, ops
@@ -29,6 +30,7 @@ from repro_torch.kernels.terapipe_attention_bwd import (terapipe_attention_bwd,
                                                         terapipe_attention_dq)
 from repro_torch.launch import serve as serve_launch
 from repro_torch.launch import train as train_launch
+from repro_torch.launch.steps import abstract_init
 from repro_torch.models import build_model
 from repro_torch.serve import DecodeEngine, EngineConfig
 from repro_torch.timing import PEAK_BF16_FLOPS, PEAK_BYTES, bound_ms
@@ -53,11 +55,13 @@ def _imports(tree):
 
 
 def test_port_imports_nothing_of_jax():
-    assert len(PORT_FILES) > 20 and len(PORT_EXAMPLES) == 3
-    assert {"checkpoint", "analysis"} <= {p.parent.name for p in PORT_FILES}
+    assert len(PORT_FILES) > 20 and len(PORT_EXAMPLES) == 4
+    assert {"checkpoint", "analysis", "distributed"} <= {p.parent.name for p in PORT_FILES}
     assert {"moe.py", "qwen3_moe.py", "deepseek_moe.py", "ssm.py", "rglru.py", "mamba2.py",
             "recurrentgemma.py", "phi3_mini.py", "phi4_mini.py", "stablelm_12b.py",
-            "phi3_vision.py", "whisper_medium.py"} <= {p.name for p in PORT_FILES}
+            "phi3_vision.py", "whisper_medium.py", "steps.py",
+            "collectives.py"} <= {p.name for p in PORT_FILES}
+    assert "serve_decode_torch.py" in {p.name for p in PORT_EXAMPLES}
     bad = []
     for path in PORT_FILES + PORT_EXAMPLES + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]:
         for mod in _imports(ast.parse(path.read_text())):
@@ -71,7 +75,7 @@ def test_port_calls_no_finished_attention_op():
     not kernels of this repository (chip_smoke times SDPA only as a
     yardstick, so it is not scanned here)."""
     bad = []
-    for path in PORT_FILES:
+    for path in PORT_FILES + PORT_EXAMPLES:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Attribute) and node.attr in FORBIDDEN_CALLS:
                 bad.append(f"{path.relative_to(ROOT)}:{node.lineno}: {node.attr}")
@@ -127,6 +131,23 @@ def test_entry_points_raise_without_gpu():
     for bwd in (terapipe_attention_bwd, terapipe_attention_dq, terapipe_attention_dkv):
         with pytest.raises(ValueError, match="CUDA tensors"):
             bwd(q, k, v, q, lse, lse, 2)
+
+
+def test_meta_device_only_when_named():
+    """``meta`` (the abstract structures) is a device a caller must name:
+    no default or fallback reaches it, and other devices are refused."""
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    assert build_model(cfg, device="meta").device == torch.device("meta")
+    assert resolve_device("meta") == torch.device("meta")
+    assert build_model(cfg, device="cpu").device == torch.device("cpu")
+    for bad in ("mps", "xla", "hpu"):
+        with pytest.raises((ValueError, RuntimeError)):
+            resolve_device(bad)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            abstract_init(build_model(cfg))
+    params, _ = abstract_init(build_model(cfg, device="cpu"))
+    assert all(t.is_meta for t in params.values() if isinstance(t, torch.Tensor))
 
 
 def test_cpu_tensors_take_the_plain_path_without_launches():
