@@ -169,6 +169,23 @@ result line):
                host's, the accumulated sent gradient within each leaf's
                largest residual of the true one, the bf16 round trip; then
                examples/serve_decode_torch.py on the card, launches exact;
+ 8d. parallel — the parallel layer (launch/mesh.py, distributed/sharding.py,
+               the executor on a mesh, distributed/transport.py): gpt3-1b at
+               full width on data 2 x pipe 2 x tp 2 (8 virtual ranks, 8 of
+               16 heads per tp rank) against the same step on pipe 4 and
+               the plain paths (batch 2 x seq 2048, contiguous M 8, within
+               phase 4's bounds), then 3 launch.train steps of each at batch
+               4 x seq 2048, launches exactly 1536 / 768 / 768 per step on
+               the mesh (384 / 192 / 192 on pipe 4); deepseek-moe-16b, 3
+               layers, on pipe 2 x tp 2 (32 of 64 routed experts per rank)
+               against pipe 2 in bf16 within the bounds, and the whole
+               model in f32: the routing at tp 2 changes a token's choices
+               only at a near-tie of its pipe-2 gates (top-k gap at most
+               twice its gates' change) and keep bits only in groups with
+               such a change; two CPU processes under gloo
+               running gpt3 SMOKE f32 on pipe 2 (DistRing, 1f1b), tp 2 and
+               data 2 (DistGroup), bit-equal in loss and every gradient to
+               the in-process LocalRing/LocalGroup run;
   9. times   — each kernel at a main-path shape (CUDA events, median of 30
                after warm-up, L2 flushed before each launch) beside its
                bound, its plain version and one PyTorch library call; the
@@ -217,10 +234,11 @@ from repro_torch.configs import (ARCHS, PAPER_ARCHS, SHAPES, get_config,  # noqa
 from repro_torch.core.cost_model import (H100, AnalyticCostModel,  # noqa: E402
                                          fit_efficiency_and_floor,
                                          measure_kernel_cost_table)
-from repro_torch.core.pipeline import (TeraPipeConfig,  # noqa: E402
+from repro_torch.core.pipeline import (TeraPipeConfig, make_terapipe_loss,  # noqa: E402
                                        make_terapipe_value_and_grad, value_and_grad)
 from repro_torch.core.schedules import REGISTRY, get_schedule  # noqa: E402
 from repro_torch.data.pipeline import DataPipeline, SyntheticSource  # noqa: E402
+from repro_torch.distributed import transport  # noqa: E402
 from repro_torch.distributed.collectives import (bf16_compress,  # noqa: E402
                                                  bf16_decompress, int8_ef_compress,
                                                  int8_ef_decompress, int8_ef_init)
@@ -236,6 +254,7 @@ from repro_torch.kernels.terapipe_attention import (HEAD_DIMS,  # noqa: E402
 from repro_torch.kernels.terapipe_attention_bwd import (  # noqa: E402
     terapipe_attention_bwd, terapipe_attention_dkv, terapipe_attention_dq)
 from repro_torch.launch import train as train_launch  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.launch.steps import (abstract_caches, abstract_init,  # noqa: E402
                                      abstract_opt_state, make_decode_step,
                                      make_prefill_step, make_train_step)
@@ -385,6 +404,9 @@ PIPE_SLICES = 8                           # M of the pipelined step
 # second slice's ctx and at the last one's, over the cache rows [0, ctx + l)
 PIPE_CASES = [(TRAIN_BATCH, TRAIN_SEQ // PIPE_SLICES, ctx, 16, 16, 128, 1.0, 0)
               for ctx in (TRAIN_SEQ // PIPE_SLICES, TRAIN_SEQ - TRAIN_SEQ // PIPE_SLICES)]
+# the same slices on phase 8d's mesh: one data rank's 2 rows, one tp rank's
+# 8 of the 16 heads
+PAR_CASES = [(TRAIN_BATCH // 2, l, ctx, 8, 8, 128, 1.0, 0) for (_, l, ctx, *_) in PIPE_CASES]
 
 
 # one layer's attention in the training steps of phase 8b's families:
@@ -417,9 +439,10 @@ MOE_BWD_CASE = (1, 256, 256, 64, 4, 128, 1.0, 37)
 
 def fwd_cases():
     """prefill_cases() plus the training shape, with and without a tail, the
-    pipelined step's slices, qwen3-moe's GQA-16 prefill and phase 8b's
-    training shapes at hd 96 and 64."""
-    return prefill_cases() + TRAIN_CASES + PIPE_CASES + [MOE_PREFILL_CASE] + FAMILY_TRAIN_CASES
+    pipelined step's slices (also at phase 8d's tp-local shape), qwen3-moe's
+    GQA-16 prefill and phase 8b's training shapes at hd 96 and 64."""
+    return (prefill_cases() + TRAIN_CASES + PIPE_CASES + PAR_CASES + [MOE_PREFILL_CASE]
+            + FAMILY_TRAIN_CASES)
 
 
 def _check_bf16_row_stride() -> None:
@@ -531,10 +554,11 @@ GQA_CTX_CASE = (2, 200, 100, 16, 4, 128, 1.0, 37)
 def bwd_cases():
     """prefill_cases() plus a ragged 33-row slice, a GQA slice whose ctx is
     not a multiple of the dK/dV kernel's 64-key tile, the training shape,
-    with and without a tail, the pipelined step's slices, a GQA-16 slice and
-    phase 8b's training shapes at hd 96 and 64."""
+    with and without a tail, the pipelined step's slices (also at phase 8d's
+    tp-local shape), a GQA-16 slice and phase 8b's training shapes at hd 96
+    and 64."""
     return (prefill_cases() + [(2, 33, 17, 8, 2, 64, 1.0, 37), GQA_CTX_CASE] + TRAIN_CASES
-            + PIPE_CASES + [MOE_BWD_CASE] + FAMILY_TRAIN_CASES)
+            + PIPE_CASES + PAR_CASES + [MOE_BWD_CASE] + FAMILY_TRAIN_CASES)
 
 
 def _bwd_inputs(b, l, ctx, hq, hkv, hd, sc, dtype, gen, tail=37):
@@ -779,17 +803,22 @@ def _drops(routes: list) -> str:
 
 def _check_train_against_plain(cfg, pipelined: Optional[Dict[str, TeraPipeConfig]] = None,
                                gspmd: bool = False, seq: int = TRAIN_SEQ,
-                               route: str = "kernels") -> int:
-    """One loss and all its gradients at batch 1 x ``seq`` from one seeded
+                               route: str = "kernels", rows: int = 1,
+                               versus: Optional[str] = None) -> int:
+    """One loss and all its gradients at ``rows`` x ``seq`` from one seeded
     init: through the kernels (the gspmd step if ``gspmd``, and the
-    pipelined step of each of ``pipelined``'s configs on PIPE_RANKS ranks,
-    one after another), through the plain
+    pipelined step of each of ``pipelined``'s configs, one after another:
+    a TeraPipeConfig on PIPE_RANKS ranks, or a ``(TeraPipeConfig, Mesh)``
+    pair), through the plain
     attention path, and through the plain path in float32; each kernel run
     is held to the bounds.  For the MoE family it also prints each bf16
     path's routing drops and the (token, choice) assignments it changes
     against the float32 path.  ``route`` names the bf16 runs in the lines
     (a family whose attention takes the plain route, or has none, runs the
-    same code with ``use_kernel``).  Returns the number of parameters."""
+    same code with ``use_kernel``).  With ``versus`` (a key of
+    ``pipelined``), every later pipelined run is also printed against that
+    one: loss, worst leaf and, for MoE, the assignments changed.  Returns
+    the number of parameters."""
     variants = {"plain": cfg.replace(use_kernel=False),
                 "plain f32": cfg.replace(use_kernel=False, dtype=torch.float32),
                 "kernel": cfg.replace(use_kernel=True)}
@@ -798,13 +827,15 @@ def _check_train_against_plain(cfg, pipelined: Optional[Dict[str, TeraPipeConfig
     if gspmd:
         kernel_vgs[route] = value_and_grad(models["kernel"].loss)
     for label, tcfg in (pipelined or {}).items():
+        tcfg, mesh = tcfg if isinstance(tcfg, tuple) else (tcfg, PIPE_RANKS)
         kernel_vgs[f"pipelined ({label}) {route}"] = make_terapipe_value_and_grad(
-            models["kernel"], tcfg, seq, 1, PIPE_RANKS)
+            models["kernel"], tcfg, seq, rows, mesh)
+    versus = versus and f"pipelined ({versus}) {route}"
     params = models["kernel"].init(seed=0)
     named = list(tree_items(params))
     for _, p in named:
         p.requires_grad_(True)
-    toks = train_launch.make_data(cfg, 1, seq, 1).batch_at(0)
+    toks = train_launch.make_data(cfg, rows, seq, 1).batch_at(0)
     batch = {k: torch.from_numpy(a).cuda() for k, a in toks.items()}
     is_moe = cfg.family == "moe"
 
@@ -823,9 +854,10 @@ def _check_train_against_plain(cfg, pipelined: Optional[Dict[str, TeraPipeConfig
     p32 = [_rel(a, b) for a, b in zip(gp, g32)]
     wp = max(p32)
     if is_moe:
-        log(f"[train] {cfg.name} routing, batch 1 x seq {TRAIN_SEQ}, {len(r32)} MoE layers: "
+        log(f"[train] {cfg.name} routing, batch {rows} x seq {seq}, {len(r32)} MoE layers: "
             f"plain bf16 changes {_changed(rp, r32)} (token, choice) assignments of the plain "
             f"f32 path's; drops plain f32 {_drops(r32)}, plain bf16 {_drops(rp)}")
+    gv = None
     for label, vg in kernel_vgs.items():
         lk, gk, rk = run(vg)
         if not (torch.isfinite(lk) and all(torch.isfinite(g).all() for g in gk)):
@@ -833,13 +865,23 @@ def _check_train_against_plain(cfg, pipelined: Optional[Dict[str, TeraPipeConfig
         rel_loss = ((lk - lp).abs() / lp.abs()).item()
         vs_plain = [_rel(a, b) for a, b in zip(gk, gp)]
         k32 = [_rel(a, b) for a, b in zip(gk, g32)]
+        if label == versus:
+            lv, gv, rv = lk, gk, rk
+        elif gv is not None:
+            vv = [_rel(a, b) for a, b in zip(gk, gv)]
+            wv = max(vv)
+            log(f"[train] {label} vs {versus}: loss relative "
+                f"{((lk - lv).abs() / lv.abs()).item():.3g}, per-leaf worst {wv:.3g} "
+                f"({named[vv.index(wv)][0]}), median {statistics.median(vv):.3g}"
+                + (f"; changes {_changed(rk, rv)} (token, choice) assignments of that run's"
+                   if is_moe else ""))
         del gk
         wk = max(k32)
         if is_moe:
             log(f"[train] {cfg.name} routing, {label}: changes {_changed(rk, r32)} (token, "
                 f"choice) assignments of the plain f32 path's ({_changed(rk, rp)} of the plain "
                 f"bf16 path's); drops {_drops(rk)}")
-        log(f"[train] {cfg.name} FULL width, {cfg.n_layers} layers, batch 1 x seq {seq}: "
+        log(f"[train] {cfg.name} FULL width, {cfg.n_layers} layers, batch {rows} x seq {seq}: "
             f"loss {label} {lk.item():.6f}, "
             f"plain {lp.item():.6f}, plain f32 {l32.item():.6f} ({route} vs plain relative "
             f"{rel_loss:.3g}, bound {LOSS_REL_BOUND})")
@@ -921,7 +963,7 @@ def _train_run(cfg, argv, label, per_step, steps: int = TRAIN_STEPS) -> tuple:
 
 
 def _launches_per_step(cfg, work_items: int, schedule: str = "contiguous",
-                       pre_layers: int = 0) -> dict:
+                       pre_layers: int = 0, tp: int = 1, data: int = 1) -> dict:
     """Kernel launches of one training step that runs every layer but the
     ``pre_layers`` before the pipeline on ``work_items`` (slice,
     microbatch) pieces under ``schedule``, per layer per piece:
@@ -936,15 +978,19 @@ def _launches_per_step(cfg, work_items: int, schedule: str = "contiguous",
       (the inputs' gradient) and W (the parameters') each run the
       attention backward: 2 dQ, 2 dK/dV.
     A pre-group layer runs once on the whole sequence, differentiated by
-    autograd under any schedule: 1 + remat forward, 1 dQ, 1 dK/dV."""
+    autograd under any schedule: 1 + remat forward, 1 dQ, 1 dK/dV.  On a
+    mesh, each data rank runs its own step (``work_items`` are one data
+    rank's), and within a stage each tp rank calls each kernel on its own
+    heads; the pre-groups run once per data rank, not per tp rank."""
     spec = REGISTRY[schedule]
-    n = work_items * (cfg.n_layers - pre_layers)
+    n = work_items * (cfg.n_layers - pre_layers) * tp * data
+    pre = pre_layers * data
     fwd = 2 if spec.has_backward or cfg.remat else 1
     bwd = 2 if spec.splits_backward else 1
     pre_fwd = 2 if cfg.remat else 1
-    return {"terapipe_attention_fwd": fwd * n + pre_fwd * pre_layers,
-            "terapipe_attention_dq": bwd * n + pre_layers,
-            "terapipe_attention_dkv": bwd * n + pre_layers}
+    return {"terapipe_attention_fwd": fwd * n + pre_fwd * pre,
+            "terapipe_attention_dq": bwd * n + pre,
+            "terapipe_attention_dkv": bwd * n + pre}
 
 
 def _gpt3_1b():
@@ -2536,6 +2582,257 @@ def phase_layout() -> dict:
     return counts
 
 
+# ------------------------------------------------------ 8d. the parallel layer
+PAR_MESH = Mesh(data=2, pipe=2, tp=2)     # 8 virtual ranks
+PAR_BASE = Mesh(pipe=PIPE_RANKS)          # today's pipelined step
+PAR_PARITY_ROWS = 2                       # one row per data rank
+PAR_STEPS = 3
+MOE_PAR_MESH = Mesh(pipe=2, tp=2)         # deepseek: 32 of 64 routed experts per rank
+MOE_PAR_BASE = Mesh(pipe=2)
+# the two-process gloo check: gpt3 SMOKE, f32, batch 4 x seq 32, M 4
+GLOO_CASES = (("pipe 2, DistRing, 1f1b", Mesh(pipe=2), "1f1b"),
+              ("tp 2, DistGroup, contiguous", Mesh(tp=2), "contiguous"),
+              ("data 2, DistGroup, contiguous", Mesh(data=2), "contiguous"))
+GLOO_BATCH, GLOO_SEQ, GLOO_THREADS = 4, 32, 2
+
+
+def _mesh_steps(cfg, tcfg: TeraPipeConfig, mesh: Mesh, label: str) -> tuple:
+    """PAR_STEPS AdamW steps of gpt3-1b at batch 4 x seq 2048 through
+    launch.train.train_step (the launcher's step) with the pipelined
+    value-and-grad on ``mesh``, every launch counter set to 0 just before
+    and read just after: finite losses within 1 of ln V, launches exactly
+    _launches_per_step's.  Returns the counts and ms/step (median of steps
+    2 on, each synchronised) and the peak above the state."""
+    model = build_model(cfg.replace(use_kernel=True))
+    vg = make_terapipe_value_and_grad(model, tcfg, TRAIN_SEQ, TRAIN_BATCH, mesh)
+    opt = adamw(cosine_schedule(3e-4, 1, PAR_STEPS))
+    data = train_launch.make_data(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)
+    state = {"params": tree_map(lambda p: p.requires_grad_(True), model.init(seed=0))}
+    state["opt_state"] = opt.init(state["params"])
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    losses, ms = [], []
+    for i in range(PAR_STEPS):
+        batch = {k: torch.from_numpy(a).cuda() for k, a in data.batch_at(i).items()}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        losses.append(train_launch.train_step(vg, opt, state, batch).item())
+        ms.append((time.time() - t0) * 1e3)
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in COUNTERS.items()}
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    per_step = _launches_per_step(cfg, vg.plan.DM, tp=vg.plan.tp, data=vg.plan.data)
+    want = {k: per_step.get(k, 0) * PAR_STEPS for k in COUNTERS}
+    step_ms = statistics.median(ms[1:])
+    log(f"[parallel] {cfg.name} FULL width, {cfg.n_layers} layers, {mesh}, contiguous M "
+        f"{tcfg.n_token_slices}, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, bf16, kernels: losses "
+        f"{losses}; steps {[round(x, 1) for x in ms]} ms, {step_ms:.1f} ms/step (median of "
+        f"steps 2-{PAR_STEPS}), {TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.0f} tok/s; peak "
+        f"allocated {peak:.2f} GiB above the state's {base / 2**30:.2f}; launches {counts} "
+        f"({per_step} per step)")
+    ln_v = math.log(cfg.vocab_size)
+    if not all(abs(x - ln_v) <= 1.0 for x in losses):
+        raise AssertionError(f"parallel {label}: losses {losses} not within 1 of ln V")
+    if counts != want:
+        raise AssertionError(f"parallel {label}: launches {counts} != {want}")
+    del state
+    torch.cuda.empty_cache()
+    return counts, {"step_ms": step_ms, "peak_gib": peak}
+
+
+def _moe_parallel() -> None:
+    """deepseek-moe-16b, MOE_LAYERS layers, batch 1 x seq 2048, contiguous M
+    8: expert parallelism on MOE_PAR_MESH against MOE_PAR_BASE in bf16,
+    both within phase 4's bounds of the plain paths, and against each
+    other (the assignments the TP sums' rounding changes downstream); then
+    the whole model's routing on both meshes in f32 (_moe_routing_f32)."""
+    cfg = _deepseek()
+    tcfg = TeraPipeConfig(n_token_slices=PIPE_SLICES)
+    _check_train_against_plain(cfg, {"pipe 2": (tcfg, MOE_PAR_BASE),
+                                     "pipe 2 x tp 2": (tcfg, MOE_PAR_MESH)}, versus="pipe 2")
+    torch.cuda.empty_cache()
+    _moe_routing_f32(cfg, dataclasses.replace(tcfg, cache_dtype=torch.float32))
+    torch.cuda.empty_cache()
+
+
+def _moe_routing_f32(cfg, tcfg: TeraPipeConfig) -> None:
+    """The whole model's routing in f32 on MOE_PAR_MESH against
+    MOE_PAR_BASE: the pipelined loss without autograd from one seeded init
+    and batch, every call of ``moe._route`` recorded with its input (the
+    two meshes make the same calls in the same tick order, on the same
+    routers).  The TP partial sums round the MoE layers' inputs apart, so
+    the routing records may differ; routing is global (the top-k of the
+    softmax over all n_experts, the capacity counted over them on every
+    tp rank), so a token's choices can change only where its pipe-2 gates
+    are a near-tie: the gap between its k-th and (k+1)-th gate at most
+    twice the largest change of its gates, and a keep bit only in a
+    routing group where a token's choices changed.  Fails otherwise, or
+    if the losses differ beyond LOSS_REL_BOUND.  Reports the (token,
+    choice) assignments and keep bits changed, and the changed tokens'
+    gaps beside every token's median gap."""
+    c32 = cfg.replace(dtype=torch.float32, use_kernel=False)
+    model = build_model(c32)
+    params = model.init(seed=0)
+    toks = train_launch.make_data(cfg, 1, TRAIN_SEQ, 1).batch_at(0)
+    batch = {k: torch.from_numpy(a).cuda() for k, a in toks.items()}
+    route, calls, losses = moe._route, {}, {}
+    for label, mesh in (("pipe 2", MOE_PAR_BASE), ("pipe 2 x tp 2", MOE_PAR_MESH)):
+        rec = calls[label] = []
+
+        def spy(router, c, xg, rec=rec):
+            r = route(router, c, xg)
+            rec.append((router, xg, r))
+            return r
+
+        moe._route = spy
+        try:
+            with torch.no_grad():
+                losses[label] = make_terapipe_loss(model, tcfg, TRAIN_SEQ, 1, mesh)(
+                    params, batch).item()
+        finally:
+            moe._route = route
+    base, par = calls["pipe 2"], calls["pipe 2 x tp 2"]
+    if len(base) != len(par) or any(a[0].data_ptr() != b[0].data_ptr()
+                                    for a, b in zip(base, par)):
+        raise AssertionError("parallel: the two meshes made different routing calls")
+    k = c32.moe_top_k
+    n_choices = changed = keep_changed = stray_keep = 0
+    gaps, flip_gaps, ratios, x_rel = [], [], [], []
+    with torch.no_grad():
+        for (w, x1, r1), (_, x2, r2) in zip(base, par):
+            g1 = torch.softmax((x1 @ w).float(), dim=-1)
+            g2 = torch.softmax((x2 @ w).float(), dim=-1)
+            t1 = r1.flat_e.reshape(g1.shape[:-1] + (k,))
+            t2 = r2.flat_e.reshape(g2.shape[:-1] + (k,))
+            moved = ~(t2[..., :, None] == t1[..., None, :]).any(-1)      # (G, S, k)
+            flip = moved.any(-1)                                         # (G, S)
+            top = torch.topk(g1, k + 1, dim=-1).values
+            gap = top[..., k - 1] - top[..., k]
+            drift = (g2 - g1).abs().amax(-1)
+            keep_diff = r1.keep != r2.keep                               # (G, S*k)
+            n_choices += moved.numel()
+            changed += int(moved.sum())
+            keep_changed += int(keep_diff.sum())
+            stray_keep += int((keep_diff.any(-1) & ~flip.any(-1)).sum())
+            gaps.append(gap.flatten())
+            flip_gaps.append(gap[flip])
+            ratios.append(gap[flip] / (2 * drift[flip]))
+            x_rel.append(_rel(x2, x1))
+    gaps, flip_gaps, ratios = (torch.cat(t) for t in (gaps, flip_gaps, ratios))
+    rel_loss = abs(losses["pipe 2 x tp 2"] - losses["pipe 2"]) / abs(losses["pipe 2"])
+    worst = float(ratios.max()) if ratios.numel() else 0.0
+    log(f"[parallel] {cfg.name} f32 routing, pipe 2 x tp 2 vs pipe 2 ({len(base)} routing "
+        f"calls, batch 1 x seq {TRAIN_SEQ}): losses {losses['pipe 2 x tp 2']:.7f} and "
+        f"{losses['pipe 2']:.7f} (relative {rel_loss:.3g}); MoE inputs' relative difference "
+        f"max {max(x_rel):.3g}; {changed} of {n_choices} (token, choice) assignments changed, "
+        f"in {flip_gaps.numel()} tokens, whose pipe-2 top-k gap (k-th minus (k+1)-th gate) is "
+        f"at most {float(flip_gaps.max()) if flip_gaps.numel() else 0.0:.3g} against every "
+        f"token's median {float(gaps.median()):.3g}; gap / (2 x the token's largest gate "
+        f"change) at most {worst:.3g} (bound 1); keep bits changed {keep_changed}, "
+        f"{stray_keep} of them in groups where no choice changed (bound 0)")
+    if worst > 1.0 or stray_keep:
+        raise AssertionError("parallel: the routing at tp 2 is not the global top-k and "
+                             "capacity of its own input")
+    if rel_loss > LOSS_REL_BOUND:
+        raise AssertionError(f"parallel: f32 loss at tp 2 off pipe 2's by {rel_loss:.3g}")
+    del model, params, calls, base, par
+
+
+def _gloo_setup(schedule: str):
+    """gpt3 SMOKE in f32 on the CPU, its seeded parameters, a batch and the
+    pipelined step's config, the same in every process."""
+    torch.set_num_threads(GLOO_THREADS)
+    cfg = get_config("gpt3-1b", smoke=True).replace(dtype=torch.float32)
+    model = build_model(cfg, "cpu")
+    params = tree_map(lambda p: p.requires_grad_(True), model.init(seed=0))
+    toks = train_launch.make_data(cfg, GLOO_BATCH, GLOO_SEQ, 0).batch_at(0)
+    batch = {k: torch.from_numpy(a) for k, a in toks.items()}
+    tcfg = TeraPipeConfig(n_token_slices=4, cache_dtype=torch.float32, schedule=schedule)
+    return model, params, batch, tcfg
+
+
+def _gloo_worker(rank: int, address: str, out_dir: str) -> None:
+    """One of the two processes: each case's loss and gradients through
+    the transport's groups for its mesh, saved for the parent."""
+    transport.init_process_group(address, rank, 2, "gloo")
+    try:
+        for i, (_, mesh, schedule) in enumerate(GLOO_CASES):
+            model, params, batch, tcfg = _gloo_setup(schedule)
+            vg = make_terapipe_value_and_grad(model, tcfg, GLOO_SEQ, GLOO_BATCH, mesh,
+                                              transport.mesh_groups(mesh))
+            torch.save(vg(params, batch), Path(out_dir) / f"rank{rank}_case{i}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _gloo_transport() -> None:
+    """Two CPU processes under gloo (torch.multiprocessing, spawned; a free
+    localhost port) against the in-process run of each GLOO_CASES mesh:
+    the loss and every gradient leaf bit-equal on both ranks."""
+    import socket
+    import torch.multiprocessing as mp
+    out_dir = ROOT / "build" / "gloo_check"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.time()
+    mp.start_processes(_gloo_worker, args=(f"tcp://localhost:{port}", str(out_dir)), nprocs=2,
+                       start_method="spawn", join=True)
+    spawned = time.time() - t0
+    threads = torch.get_num_threads()
+    try:
+        for i, (label, mesh, schedule) in enumerate(GLOO_CASES):
+            model, params, batch, tcfg = _gloo_setup(schedule)
+            loss, grads = make_terapipe_value_and_grad(model, tcfg, GLOO_SEQ, GLOO_BATCH,
+                                                       mesh)(params, batch)
+            want = list(tree_leaves(grads))
+            for rank in range(2):
+                got_loss, got = torch.load(out_dir / f"rank{rank}_case{i}.pt")
+                got = list(tree_leaves(got))
+                equal = torch.equal(got_loss, loss) and len(got) == len(want) and all(
+                    torch.equal(a, b) for a, b in zip(got, want))
+                worst = max(float((a - b).abs().max()) for a, b in zip(got, want))
+                log(f"[parallel] gloo {label}, rank {rank} of 2: loss {got_loss.item():.7f} "
+                    f"(in process {loss.item():.7f}), {len(got)} gradient leaves, "
+                    f"{'bit-equal' if equal else 'NOT bit-equal'} (max abs difference {worst:.3g})")
+                if not equal:
+                    raise AssertionError(f"parallel: gloo {label} rank {rank} differs from the "
+                                         f"in-process run")
+    finally:
+        torch.set_num_threads(threads)
+    log(f"[parallel] gloo transport: two processes, {len(GLOO_CASES)} meshes, "
+        f"{spawned:.1f} s from spawn to join, {time.time() - t0:.1f} s with the in-process runs")
+
+
+def phase_parallel() -> dict:
+    """The parallel layer at full width (gpt3-1b on data 2 x pipe 2 x tp 2
+    against pipe 4 and the plain paths, then 3 steps of each;
+    deepseek-moe-16b's expert parallelism) and the gloo transport.  Returns
+    the counts of its step runs."""
+    t0 = time.time()
+    cfg = _gpt3_1b()
+    torch.cuda.empty_cache()
+    tcfg = TeraPipeConfig(n_token_slices=PIPE_SLICES)
+    _check_train_against_plain(cfg, {f"pipe {PIPE_RANKS}": (tcfg, PAR_BASE),
+                                     "data 2 x pipe 2 x tp 2": (tcfg, PAR_MESH)},
+                               rows=PAR_PARITY_ROWS, versus=f"pipe {PIPE_RANKS}")
+    torch.cuda.empty_cache()
+    counts, runs = {}, {}
+    for label, mesh in ((f"pipe {PIPE_RANKS}", PAR_BASE), ("data 2 x pipe 2 x tp 2", PAR_MESH)):
+        counts[label], runs[label] = _mesh_steps(cfg, tcfg, mesh, label)
+    log("[parallel] contiguous M " + str(PIPE_SLICES) + ": " + "; ".join(
+        f"{k} {m['step_ms']:.1f} ms/step, peak {m['peak_gib']:.2f} GiB above the state"
+        for k, m in runs.items()))
+    _moe_parallel()
+    _gloo_transport()
+    log(f"[parallel] {_card()}; phase 8d took {time.time() - t0:.1f} s")
+    return {f"parallel {k}": v for k, v in counts.items()}
+
+
 # --------------------------------------------------------------- 9. times
 def phase_times(errs: dict, launches: dict) -> list:
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2778,6 +3075,8 @@ def main() -> int:
     done("families")
     paths.update(phase_layout())
     done("layout")
+    paths.update(phase_parallel())
+    done("parallel")
     launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in COUNTERS}
     log(f"[launches] main paths: {paths}")
     rows = phase_times(errs, launches)

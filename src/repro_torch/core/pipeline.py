@@ -18,11 +18,11 @@ The paper's execution model (§3.2), as the reference runs it:
   Such families need uniform slices, as in the reference.
 
 Which unit runs where and when comes from the schedule IR
-(``core/schedules``): a Python tick loop reads each rank's
+(``core/schedules``): a Python tick loop reads each hosted rank's
 ``(work_item, chunk, kind)`` from ``assign.tick_table(D·M)`` and runs it.
-Values move between ranks through a transport with one ``shift`` method
-(:class:`LocalRing`, in process), so that a ``torch.distributed`` ring can
-later stand behind the same call (ROADMAP Queue 1 item 9).  The comm plan
+Values move between ranks through a transport with one ``shift`` method:
+:class:`LocalRing` hosts all K ranks in process,
+``distributed.transport.DistRing`` one per process.  The comm plan
 (``assign.comm_plan()``) adds destination-side skew buffers, ``hold + 1``
 deep, pushed every tick and read ``hold`` ticks later: ``fwd_hold`` on the
 forward wrap edge (rank K-1 → 0), ``rev_hold`` on the reverse wrap edge
@@ -47,10 +47,30 @@ Two kinds of schedule, as in the reference:
 
 What differs from the reference, and why the result does not:
 
-* **No mesh.** K ranks run one after another in one process on one device,
-  so the signatures take ``(model, tcfg, seq_len, global_batch, n_ranks)``
-  in place of ``(model, specs, mesh, ...)``.  Parameter shardings and
-  tensor parallelism are not ported (ROADMAP Queue 1 item 9).
+* **A mesh of sizes, ranks hosted by groups.** The signatures take
+  ``(model, tcfg, seq_len, global_batch, mesh)`` in place of ``(model,
+  specs, mesh, ...)``: ``mesh`` a :class:`~repro_torch.launch.mesh.Mesh`
+  with a ``pipe`` axis and optional ``tp`` and ``data`` axes (an int K is
+  ``Mesh(pipe=K)``), ``groups`` the process's transport per axis (default:
+  every rank in process, :class:`LocalRing` and ``LocalGroup``).  The
+  mesh axes' names are fixed (``pipe``, ``tp``, ``data``), so
+  ``TeraPipeConfig`` has no axis fields.
+* **Data parallelism** (``data`` axis): data rank r takes the rows
+  ``[r·B/data, (r+1)·B/data)``, cut into its D microbatches; each data
+  rank's loss and gradients are computed on a graph of their own (one data
+  rank's activations alive at a time), the loss scaled by its share of the
+  global batch, and the data group's ``all_reduce`` sums them (the
+  reference's ``psum`` over the data axes).  Every schedule takes it.
+* **Tensor parallelism inside a stage** (``tp`` axis, Megatron): the stage
+  leaves are placed by :func:`_leaf_pspec` (``heads``, ``ff``, ``experts``
+  on ``tp``; ``kv_heads`` only if the axis divides them), each hosted tp
+  rank gets its block of every layer (``distributed.sharding.local_shard``)
+  and the stage runs the TP-local model, whose blocks take the hosted
+  ranks' list of shards and all_reduce their partials.  The forward-only
+  schedules take it; the explicit-backward ones raise, as the reference's
+  do.  A rank whose KV heads are replicated keeps the heads its q heads
+  read (``attention.tp_rank_attn``), where the reference pairs them
+  wrongly (ROADMAP Queue 3).
 * **Eager shapes.** The reference pads every slice to ``l_max``, pads the
   cache to ``L + l``, pads the sequence and sends idle ticks' outputs to a
   dump row, all to keep a traced ``lax.scan`` shape-stable.  Here each
@@ -83,20 +103,31 @@ What differs from the reference, and why the result does not:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.models import Model
-from repro_torch.models.common import rms_norm
+from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec, local_shard_tree,
+                                              map_specs)
+from repro_torch.launch.mesh import Mesh, data_axes
+from repro_torch.models import Model, build_model
+from repro_torch.models.attention import tp_local_kv_heads, tp_rank_attn
+from repro_torch.models.common import LocalGroup, ModelConfig, rms_norm
 from repro_torch.models.lm import BlockGroup, _remat, _scan_full, _unstack, _xent_chunk
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import tree_items, tree_leaves, tree_map, tree_unflatten
 
 from .schedules import (KIND_BWD, KIND_BWD_INPUT, KIND_BWD_WEIGHT, KIND_FWD, get_schedule,
                         schedule_names)
 
 #: registered schedule names (core/schedules registry): the CLI choices
 SCHEDULES = schedule_names()
+
+# logical axes of the stage leaves that tensor parallelism shards
+_TP_LOGICAL = ("heads", "ff", "experts")
+# a block's sub-trees that lie inside a tensor-parallel region (its norms
+# run on the replicated activation, outside)
+_TP_REGIONS = ("attn", "ffn", "moe")
 
 
 @dataclasses.dataclass
@@ -123,17 +154,42 @@ class TeraPipeConfig:
 
 
 class LocalRing:
-    """Ring transport of K virtual ranks in one process: ``shift`` hands
-    each rank the value its ring predecessor sent (the reference's
-    ``ppermute`` over ``(j, (j + step) % K)``): ``step`` 1 is the forward
-    ring, -1 the reverse (cotangent) ring."""
+    """Ring transport of K virtual ranks in one process, which hosts them
+    all (``ranks``): ``shift`` takes one value per hosted rank and hands
+    each the value its ring predecessor sent (the reference's ``ppermute``
+    over ``(j, (j + step) % K)``): ``step`` 1 is the forward ring, -1 the
+    reverse (cotangent) ring."""
 
     def __init__(self, n_ranks: int):
-        self.n_ranks = n_ranks
+        self.n_ranks = self.size = n_ranks
+        self.ranks = tuple(range(n_ranks))
 
     def shift(self, sent: List[Any], step: int = 1) -> List[Any]:
         assert len(sent) == self.n_ranks, (len(sent), self.n_ranks)
         return [sent[(k - step) % self.n_ranks] for k in range(self.n_ranks)]
+
+
+def _hosts_all(group) -> bool:
+    return len(group.ranks) == group.size
+
+
+def _leaf_pspec(spec: Tuple, tp_axis: Optional[str], tp_size: int, pipe_axis: str,
+                cfg: ModelConfig) -> PartitionSpec:
+    """The placement of one stacked main-group leaf (reference
+    ``_leaf_pspec``, ``pipeline.py:192-207``): ``spec[0]`` is the layer
+    axis (-> pipe); ``heads``/``ff``/``experts`` -> tp; ``kv_heads`` -> tp
+    only if the axis divides ``cfg.n_kv_heads``; everything else
+    replicated."""
+    out = [pipe_axis]
+    for ax in spec[1:]:
+        if tp_axis and tp_size > 1 and ax in _TP_LOGICAL:
+            out.append(tp_axis)
+        elif (tp_axis and tp_size > 1 and ax == "kv_heads"
+              and cfg.n_kv_heads % tp_size == 0):
+            out.append(tp_axis)
+        else:
+            out.append(None)
+    return PartitionSpec(*out)
 
 
 class _Saved(NamedTuple):
@@ -201,14 +257,27 @@ def _group_split(model: Model) -> Tuple[List[BlockGroup], BlockGroup, List[Block
 
 
 class _Plan:
-    """Everything the executor derives from (model, tcfg, shapes, K): slice
-    geometry, the schedule assignment and comm plan, each chunk's layer
-    rows, the stage-local block function."""
+    """Everything the executor derives from (model, tcfg, shapes, mesh):
+    slice geometry, the schedule assignment and comm plan, each chunk's
+    layer rows, the stage-local (TP-local) block function and placements,
+    and the process's transport per mesh axis."""
 
     def __init__(self, model: Model, tcfg: TeraPipeConfig, seq_len: int,
-                 global_batch: int, n_ranks: int):
+                 global_batch: int, mesh, groups: Optional[Dict[str, Any]] = None):
+        self.mesh = mesh = mesh if isinstance(mesh, Mesh) else Mesh(pipe=int(mesh))
+        unknown = set(mesh.shape) - {"pipe", "tp", "data", "pod"}
+        assert not unknown, f"mesh axes {sorted(unknown)}: the executor runs pipe, tp, data, pod"
         self.model, self.tcfg = model, tcfg
-        self.K = K = n_ranks
+        self.K = K = mesh.get("pipe")
+        self.tp = tp = mesh.get("tp")
+        self.data_axes = data_axes(mesh)
+        self.data = data = math.prod(mesh.shape[a] for a in self.data_axes)
+        groups = dict(groups or {})
+        self.ring = groups.get("pipe") or LocalRing(K)
+        self.tp_group = groups.get("tp") or LocalGroup(tp)
+        self.data_group = groups.get("data") or LocalGroup(data)
+        assert (self.ring.size, self.tp_group.size, self.data_group.size) == (K, tp, data), (
+            "groups do not match the mesh", mesh)
         self.D = D = tcfg.n_microbatches
         self.L, self.B = L, B = seq_len, global_batch
 
@@ -235,8 +304,9 @@ class _Plan:
             slice_lens = (L // M,) * M
         self.slice_lens, self.M = slice_lens, len(slice_lens)
         self.starts = [sum(slice_lens[:m]) for m in range(self.M)]
-        assert B % D == 0, (B, D)
-        self.mb = B // D
+        assert B % (data * D) == 0, (B, data, D)
+        self.b_local = B // data                     # one data rank's rows
+        self.mb = self.b_local // D
         self.DM = D * self.M
         self.tab = self.assign.tick_table(self.DM)   # validates D·M against K, V
 
@@ -248,10 +318,59 @@ class _Plan:
                 self.rows[k, v] = (min(lo, self.n_main), min(hi, self.n_main))
         self.last = (K - 1, V - 1)                   # the last global stage
 
-        # the model's own config decides the attention route (use_kernel)
-        self.cfg = model.cfg
-        self.block_fn = self.main.sliced_dyn
-        self.ring = LocalRing(K)
+        # the model's own config decides the attention route (use_kernel);
+        # the stages run the TP-local model (reference :269-281), whose
+        # state groups (mamba2, the rec block) refuse tp when built
+        self.cfg = cfg = model.cfg
+        if tp > 1:
+            assert cfg.n_heads % tp == 0, (cfg.n_heads, tp)
+            self.cfg_local = cfg.replace(
+                tp_axis=self.tp_group, head_dim=cfg.hd,    # pin: hd derives from n_heads
+                n_heads=cfg.n_heads // tp,
+                n_kv_heads=tp_local_kv_heads(cfg.n_heads, cfg.n_kv_heads, tp))
+            local = build_model(self.cfg_local, model.device)
+            self.main_local = next(g for g in local.groups if g.name == self.main.name)
+            # one layer's placements: the stage leaves' without the layer axis
+            self.layer_specs = map_specs(
+                lambda s: PartitionSpec(*_leaf_pspec(s, "tp", tp, "pipe", cfg)[1:]),
+                model.specs()["groups"][self.main.name])
+        else:
+            self.cfg_local, self.main_local = cfg, self.main
+        self.block_fn = self.main_local.sliced_dyn
+
+    def local_batch(self, batch, r: int):
+        """Data rank ``r``'s rows of every leaf of ``batch``."""
+        if self.data == 1:
+            return batch
+        return {key: a[r * self.b_local:(r + 1) * self.b_local] for key, a in batch.items()}
+
+    def param_shardings_fn(self) -> Callable:
+        """``param_shardings(specs) ->`` the :class:`NamedSharding` tree of
+        the parameters (reference ``:360-395``): the main group's leaves on
+        ``pipe`` (+ ``tp``), its layer axis replicated when K does not
+        divide the unpadded stack; everything else replicated."""
+        mesh, cfg, tp, K = self.mesh, self.cfg, self.tp, self.K
+        main_name = self.main.name
+
+        def build(spec, in_main):
+            if not in_main:
+                return NamedSharding(mesh, PartitionSpec())
+            ps = _leaf_pspec(spec, "tp", tp, "pipe", cfg)
+            if self.n_main % K:
+                ps = PartitionSpec(None, *ps[1:])
+            return NamedSharding(mesh, ps)
+
+        def param_shardings(specs):
+            out = {}
+            for key, sub in specs.items():
+                if key == "groups":
+                    out["groups"] = {g: map_specs(lambda s, m=(g == main_name): build(s, m), gs)
+                                     for g, gs in sub.items()}
+                else:
+                    out[key] = map_specs(lambda s: build(s, False), sub)
+            return out
+
+        return param_shardings
 
     def prefix(self, params, batch) -> torch.Tensor:
         """The prologue before the pipeline (reference ``:307-319``): the
@@ -270,22 +389,40 @@ class _Plan:
 
     def chunk_layers(self, main_params, leaf=lambda a: a) -> Dict[Tuple[int, int], list]:
         """Per (rank, chunk), the per-layer parameter dicts of its rows,
-        each leaf ``leaf`` of its row's view.  One unbind per stacked leaf:
-        under autograd the backward pass stacks each leaf's gradient once
-        rather than scattering each chunk's into a zero tensor of the whole
-        stack."""
+        each leaf ``leaf`` of its row's view; under tensor parallelism each
+        layer is the list of the hosted tp ranks' blocks of it
+        (``local_shard``).  One unbind per stacked leaf: under autograd the
+        backward pass stacks each leaf's gradient once rather than
+        scattering each chunk's into a zero tensor of the whole stack."""
         layers = [tree_map(leaf, layer) for layer in _unstack(main_params)]
+        if self.tp > 1:
+            layers = [[self._tp_rank_layer(layer, r) for r in self.tp_group.ranks]
+                      for layer in layers]
         return {kv: layers[lo:hi] for kv, (lo, hi) in self.rows.items()}
+
+    def _tp_rank_layer(self, layer, r: int):
+        """Tp rank ``r``'s block of one layer's parameters; its attention
+        keeps the KV heads its q heads read where they are replicated."""
+        block = local_shard_tree(layer, self.layer_specs, self.mesh, {"tp": r})
+        if "attn" in block:
+            block["attn"] = tp_rank_attn(block["attn"], self.cfg, self.tp, r)
+        return block
 
     def fresh_caches(self, n_layers: int) -> list:
         """New zero caches of ``n_layers`` layers of the main group for one
-        microbatch, one cache tree per layer, each the only row of the
-        group's own ``init_cache``: KV caches in ``tcfg.cache_dtype``,
-        recurrent states in float32.  Each layer gets storage of its own:
-        the out-of-place write of a row of a shared stack
-        (``torch.slice_scatter`` of a view) allocates the whole stack."""
-        return [tree_map(lambda a: a[0], self.main.init_cache(
-            self.mb, self.L, self.tcfg.cache_dtype, layers=1)) for _ in range(n_layers)]
+        microbatch, one cache tree per layer (under tensor parallelism the
+        list of the hosted tp ranks', at TP-local heads), each the only row
+        of the (TP-local) group's own ``init_cache``: KV caches in
+        ``tcfg.cache_dtype``, recurrent states in float32.  Each layer gets
+        storage of its own: the out-of-place write of a row of a shared
+        stack (``torch.slice_scatter`` of a view) allocates the whole
+        stack."""
+        def one():
+            return tree_map(lambda a: a[0], self.main_local.init_cache(
+                self.mb, self.L, self.tcfg.cache_dtype, layers=1))
+        if self.tp > 1:
+            return [[one() for _ in self.tp_group.ranks] for _ in range(n_layers)]
+        return [one() for _ in range(n_layers)]
 
     def stage_apply(self, layers, x, caches, ctx: int, remat: bool = False):
         """One chunk's forward of one slice at offset ``ctx``: its blocks in
@@ -303,27 +440,31 @@ class _Plan:
 
 
 def _run_ticks(p: _Plan, run_fwd: Callable, run_bwd: Optional[Callable] = None) -> None:
-    """The tick interpreter.  Per tick, every value the rings delivered
-    lands in its rank's skew buffer (idle ticks included); then each rank
-    runs its unit: ``run_fwd(k, v, i, x_in)`` returns the activation for
-    the forward ring (``x_in`` is None where rank 0 admits the item from
-    the embedding), ``run_bwd(k, v, i, kind, g)`` the cotangent for the
-    reverse ring or None (``g`` is None at the last global stage, which
-    seeds from its own loss).  A buffer is read ``hold`` (or ``rev_lag``)
-    ticks after the push, on the tick the schedule consumes the value."""
+    """The tick interpreter over the ranks the ring hosts (all K in
+    process, one under a process group).  Per tick, every value the rings
+    delivered lands in its rank's skew buffer (idle ticks included); then
+    each hosted rank runs its unit: ``run_fwd(k, v, i, x_in)`` returns the
+    activation for the forward ring (``x_in`` is None where rank 0 admits
+    the item from the embedding), ``run_bwd(k, v, i, kind, g)`` the
+    cotangent for the reverse ring or None (``g`` is None at the last
+    global stage, which seeds from its own loss).  A buffer is read
+    ``hold`` (or ``rev_lag``) ticks after the push, on the tick the
+    schedule consumes the value."""
     K, tab, comm = p.K, p.tab, p.comm
+    hosted = p.ring.ranks
+    n = len(hosted)
     hx, hg = comm.fwd_hold + 1, max(comm.rev_hold, comm.rev_lag) + 1
-    xbuf = [[None] * hx for _ in range(K)]
-    gbuf = [[None] * hg for _ in range(K)]
-    x_recv: List[Any] = [None] * K
-    g_recv: List[Any] = [None] * K
+    xbuf = [[None] * hx for _ in range(n)]
+    gbuf = [[None] * hg for _ in range(n)]
+    x_recv: List[Any] = [None] * n
+    g_recv: List[Any] = [None] * n
     for t in range(tab.shape[0] + p.tcfg.extra_ticks):
-        for k in range(K):
-            xbuf[k][t % hx] = x_recv[k]
-            gbuf[k][t % hg] = g_recv[k]
-        x_sent: List[Any] = [None] * K
-        g_sent: List[Any] = [None] * K
-        for k in range(K):
+        for j in range(n):
+            xbuf[j][t % hx] = x_recv[j]
+            gbuf[j][t % hg] = g_recv[j]
+        x_sent: List[Any] = [None] * n
+        g_sent: List[Any] = [None] * n
+        for j, k in enumerate(hosted):
             if t >= tab.shape[0] or tab[t, k, 0] < 0:
                 continue                              # idle: nothing runs
             i, v, kind = (int(a) for a in tab[t, k])
@@ -331,16 +472,16 @@ def _run_ticks(p: _Plan, run_fwd: Callable, run_bwd: Optional[Callable] = None) 
                 x_in = None
                 if (k, v) != (0, 0):                  # rank 0 chunk 0 admits new work
                     hold = comm.fwd_hold if k == 0 else 0
-                    x_in = xbuf[k][(t - hold) % hx]
+                    x_in = xbuf[j][(t - hold) % hx]
                     assert x_in is not None, (t, k, v, i)
-                x_sent[k] = run_fwd(k, v, i, x_in)
+                x_sent[j] = run_fwd(k, v, i, x_in)
                 continue
             g = None
             if (k, v) != p.last and kind != KIND_BWD_WEIGHT:
                 lag = comm.rev_lag or (comm.rev_hold if k == K - 1 else 0)
-                g = gbuf[k][(t - lag) % hg]
+                g = gbuf[j][(t - lag) % hg]
                 assert g is not None, (t, k, v, i, kind)
-            g_sent[k] = run_bwd(k, v, i, kind, g)
+            g_sent[j] = run_bwd(k, v, i, kind, g)
         x_recv = p.ring.shift(x_sent)
         if comm.rev_ring:
             g_recv = p.ring.shift(g_sent, step=-1)
@@ -371,11 +512,14 @@ def _run_forward(p: _Plan, params, x_emb: torch.Tensor):
 
 
 def _make_loss_from_plan(p: _Plan) -> Callable:
-    """Differentiable loss over the tick loop: reassemble the last stage's
-    per-item outputs into ``(B, L, d)``, run the post-groups on it (each
-    layer under checkpoint when ``cfg.remat``), then the head and the
-    chunked loss (vlm: over the text rows, so ``labels`` are ``L -
-    n_patches`` long), as the reference's ``_make_loss_from_plan`` does."""
+    """Differentiable loss over the tick loop of one data rank's rows:
+    reassemble the last stage's per-item outputs into ``(B/data, L, d)``,
+    run the post-groups on it (each layer under checkpoint when
+    ``cfg.remat``), then the head and the chunked loss (vlm: over the text
+    rows, so ``labels`` are ``L - n_patches`` long), as the reference's
+    ``_make_loss_from_plan`` does; with a data axis, scaled by the rank's
+    share of the global batch, so that the ranks' losses sum to the mean
+    over it."""
     if p.assign.has_backward:
         raise ValueError(f"schedule {p.sched!r} computes the loss and its gradients in one "
                          f"pass; build it with make_terapipe_value_and_grad")
@@ -386,7 +530,8 @@ def _make_loss_from_plan(p: _Plan) -> Callable:
                              for d in range(p.D)], dim=0)
         for g in p.post:
             x_final = _scan_full(g, params["groups"][g.name], x_final, p.cfg.remat)
-        return p.model.head_loss(params, x_final, batch["labels"])
+        loss = p.model.head_loss(params, x_final, batch["labels"])
+        return loss * (p.b_local / p.B) if p.data > 1 else loss
 
     return loss_fn
 
@@ -396,7 +541,14 @@ def _make_explicit_value_and_grad(p: _Plan) -> Callable:
     (reference ``_make_explicit_value_and_grad`` and the bwd branches of
     ``_make_pipeline_body``, ``:602-713``): one tick loop computes the loss
     and every gradient; the embedding's and the pre-groups' come from one
-    autograd pass over the prologue at the end."""
+    autograd pass over the prologue at the end.  One data rank's rows;
+    under a ring that hosts one rank per process, each process runs its
+    rank's units and the loss and gradients are summed over the ring's
+    ranks at the end (every rank but one contributes zeros to each)."""
+    if p.tp > 1:
+        raise ValueError(f"schedule {p.sched!r} does not support tensor parallelism inside a "
+                         f"stage (the per-slice head loss and the explicit gradient sums need "
+                         f"tp-aware reductions), as the reference's does not")
     if p.post:
         raise ValueError("explicit-backward schedules need the head and loss at the last "
                          "stage; post-pipeline groups are not token-local")
@@ -525,6 +677,10 @@ def _make_explicit_value_and_grad(p: _Plan) -> Callable:
         _run_ticks(p, run_fwd, run_bwd)
         assert not store.slots and not held.slots, "units left without their backward"
         value_and_grad_fn.residual_peak = store.peak
+        if not _hosts_all(p.ring):                   # the other ranks' shares
+            loss, d_emb, *d_head = (p.ring.all_reduce([a])[0] for a in [loss, d_emb] + d_head)
+            for acc in tree_leaves(d_main):
+                acc.copy_(p.ring.all_reduce([acc])[0])
 
         d_pro = tree_unflatten(pro, torch.autograd.grad(x_emb, list(tree_leaves(pro)), d_emb))
         named = {"embed": d_pro["embed"].float(), "final_ln": d_head[0]}
@@ -541,24 +697,38 @@ def _make_explicit_value_and_grad(p: _Plan) -> Callable:
 
 
 def make_terapipe_loss(model: Model, tcfg: TeraPipeConfig, seq_len: int,
-                       global_batch: int, n_ranks: int) -> Callable:
+                       global_batch: int, n_ranks, groups=None) -> Callable:
     """``loss_fn(params, batch)`` of the pipelined step under a
     forward-only schedule (differentiate it with autograd, or use
     :func:`make_terapipe_value_and_grad`, which serves every schedule).
-    Explicit-backward schedules raise ``ValueError``."""
-    return _make_loss_from_plan(_Plan(model, tcfg, seq_len, global_batch, n_ranks))
+    ``n_ranks``: an int K or a :class:`~repro_torch.launch.mesh.Mesh`; with
+    a data axis the loss is the sum of the data ranks' (each on its own
+    rows).  Explicit-backward schedules raise ``ValueError``."""
+    p = _Plan(model, tcfg, seq_len, global_batch, n_ranks, groups)
+    if not all(_hosts_all(g) for g in (p.ring, p.tp_group, p.data_group)):
+        raise ValueError("make_terapipe_loss runs every rank in process; across processes use "
+                         "make_terapipe_value_and_grad with an explicit-backward schedule")
+    local = _make_loss_from_plan(p)
+
+    def loss_fn(params, batch):
+        return p.data_group.all_reduce([local(params, p.local_batch(batch, r))
+                                        for r in p.data_group.ranks])[0]
+
+    return loss_fn
 
 
 def make_terapipe_caches_fn(model: Model, tcfg: TeraPipeConfig, seq_len: int,
-                            global_batch: int, n_ranks: int) -> Callable:
+                            global_batch: int, n_ranks) -> Callable:
     """Debug/testing: ``(params, batch) ->`` the main group's final caches
     of the same tick loop under a forward-only schedule, each leaf stacked
     ``(n_layers, B/D, ...)`` in layer order (global stage ``s = v·K + k``,
     the layout of ``model.init_caches``: ``(k, v)`` for the dense family),
     run without autograd.  With ``tcfg.extra_ticks`` appended the result
-    must be bit-identical."""
+    must be bit-identical.  Pipe meshes only (no tp or data axis)."""
     p = _Plan(model, tcfg, seq_len, global_batch, n_ranks)
     assert not p.assign.has_backward, "forward-only schedules expose the caches"
+    if p.tp > 1 or p.data > 1:
+        raise ValueError("make_terapipe_caches_fn runs pipe meshes (no tp or data axis)")
 
     @torch.no_grad()
     def caches_fn(params, batch):
@@ -583,26 +753,75 @@ def value_and_grad(loss_fn: Callable) -> Callable:
     return vg
 
 
+def _reduce_tp_regions(p: _Plan, grads):
+    """Under a tp group that hosts one rank per process: the main group's
+    gradients of the leaves inside tensor-parallel regions summed over
+    the axis (a sharded leaf's rank holds its block's gradient and zeros,
+    a replicated one its rank's share); the norms outside the regions and
+    everything outside the stages have their whole gradient on every
+    rank already."""
+    main = grads["groups"][p.main.name]
+    for path, g in tree_items(main):
+        if path.split("/")[1] in _TP_REGIONS:
+            g.copy_(p.tp_group.all_reduce([g])[0])
+    return grads
+
+
 def make_terapipe_value_and_grad(model: Model, tcfg: TeraPipeConfig, seq_len: int,
-                                 global_batch: int, n_ranks: int) -> Callable:
+                                 global_batch: int, n_ranks, groups=None) -> Callable:
     """``(params, batch) -> (loss, grads)`` for the pipelined step under any
     registered training schedule, the one entry point the trainer drives
     (reference ``pipeline.py:968-982``): autograd over the tick loop for
-    the forward-only schedules, the explicit backward units otherwise.  An
+    the forward-only schedules, the explicit backward units otherwise.
+
+    ``n_ranks``: an int K (``Mesh(pipe=K)``) or a
+    :class:`~repro_torch.launch.mesh.Mesh` with ``pipe`` and optional
+    ``tp`` and ``data`` axes; ``groups``: the process's transport per axis
+    (``distributed.transport.mesh_groups``), every rank in process by
+    default.  With a data axis, each hosted data rank's loss and gradients
+    are computed in turn on its rows and then summed by the data group.  An
     explicit schedule's function keeps, as ``residual_peak``, the most
     saved units one rank held in its last call.  Every function carries its
     ``plan`` (slices, schedule assignment, tick table), which the audits
     (``repro_torch.analysis``) hold the run to."""
-    p = _Plan(model, tcfg, seq_len, global_batch, n_ranks)
-    vg = (_make_explicit_value_and_grad(p) if p.assign.has_backward
-          else value_and_grad(_make_loss_from_plan(p)))
+    p = _Plan(model, tcfg, seq_len, global_batch, n_ranks, groups)
+    if p.assign.has_backward:
+        local = _make_explicit_value_and_grad(p)
+    else:
+        if not _hosts_all(p.ring):
+            raise ValueError(f"schedule {p.sched!r} differentiates the whole tick loop by "
+                             f"autograd, which does not cross processes; a ring that hosts "
+                             f"one rank per process runs the explicit-backward schedules")
+        local = value_and_grad(_make_loss_from_plan(p))
+
+    def vg(params, batch):
+        # each hosted data rank's graph in turn; then the sums over the
+        # data axis, leaf by leaf, each rank's leaf freed once summed
+        losses, per_rank = [], []
+        for r in p.data_group.ranks:
+            loss, grads = local(params, p.local_batch(batch, r))
+            losses.append(loss)
+            per_rank.append(list(tree_leaves(grads)))
+        reduce = p.data_group.all_reduce
+        loss = reduce(losses)[0]
+        leaves = []
+        for j in range(len(per_rank[0])):
+            leaves.append(reduce([g[j] for g in per_rank])[0])
+            for g in per_rank:
+                g[j] = None
+        grads = tree_unflatten(grads, leaves)
+        if p.tp > 1 and not _hosts_all(p.tp_group):
+            grads = _reduce_tp_regions(p, grads)
+        if p.assign.has_backward:
+            vg.residual_peak = local.residual_peak
+        return loss, grads
+
     vg.plan = p
     return vg
 
 
 def make_gpipe_loss(model: Model, *, n_microbatches: int, seq_len: int,
-                    global_batch: int, n_ranks: int,
-                    cache_dtype: Any = torch.bfloat16) -> Callable:
+                    global_batch: int, n_ranks, cache_dtype: Any = torch.bfloat16) -> Callable:
     """Microbatch-only pipelining (GPipe, the paper's baseline): D
     microbatches, one token slice per sequence."""
     tcfg = TeraPipeConfig(n_token_slices=1, n_microbatches=n_microbatches,

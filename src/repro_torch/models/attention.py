@@ -30,6 +30,12 @@ place only while autograd is off; under grad it updates out of place, as
 the reference's ``dynamic_update_slice`` does, so that no tensor saved for
 the backward pass is overwritten.  All return ``(out, (k, v))`` with the
 updated cache, as the reference does.
+
+Under tensor parallelism (``cfg.tp_axis`` a group), ``full`` and
+``sliced_dyn`` take the hosted ranks' lists of shards and caches, run each
+rank's heads and sum the output projection's partials (``_over_ranks``);
+``sliced`` and ``decode`` serve, and the reference serves without it, so
+they refuse it.
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ import torch
 from repro_torch.kernels import ops as kops
 
 from .common import (ModelConfig, apply_rope, attention_scores, attention_scores_gqa,
-                     causal_mask, dense_init, local_causal_mask, repeat_kv, rms_norm)
+                     causal_mask, dense_init, local_causal_mask, repeat_kv, rms_norm, shards,
+                     tp_group)
 
 
 def init_attn(gen: torch.Generator, cfg: ModelConfig):
@@ -63,6 +70,48 @@ def attn_specs(cfg: ModelConfig):
     if cfg.qk_norm:
         s["q_norm"] = s["k_norm"] = (None,)
     return s
+
+
+def kv_heads_of_rank(n_heads: int, n_kv_heads: int, tp: int, rank: int) -> list:
+    """The KV heads that rank ``rank`` of ``tp`` reads when ``tp`` does not
+    divide them (``wk``/``wv`` replicated): its local q head ``j`` is
+    global head ``rank·Hq/tp + j`` and reads KV head ``(rank·Hq/tp + j) //
+    (Hq // Hkv)``; the one head of its GQA group when all its q heads fall
+    in one, else one per q head."""
+    hq_local, group = n_heads // tp, n_heads // n_kv_heads
+    heads = [(rank * hq_local + j) // group for j in range(hq_local)]
+    return heads[:1] if group % hq_local == 0 else heads
+
+
+def tp_local_kv_heads(n_heads: int, n_kv_heads: int, tp: int) -> int:
+    """The KV heads one tensor-parallel rank attends with: its share when
+    ``tp`` divides them, else those :func:`kv_heads_of_rank` selects."""
+    if n_kv_heads % tp == 0:
+        return n_kv_heads // tp
+    return len(kv_heads_of_rank(n_heads, n_kv_heads, tp, 0))
+
+
+def _select_heads(w: torch.Tensor, heads, hd: int) -> torch.Tensor:
+    """The columns of ``w`` (d, H·hd) of ``heads``, in order: a view when
+    they are consecutive."""
+    if heads == list(range(heads[0], heads[0] + len(heads))):
+        return w[:, heads[0] * hd:(heads[0] + len(heads)) * hd]
+    return torch.cat([w[:, h * hd:(h + 1) * hd] for h in heads], dim=1)
+
+
+def tp_rank_attn(p, cfg: ModelConfig, tp: int, rank: int):
+    """Rank ``rank``'s attention parameters under tensor parallelism of
+    degree ``tp``, from its block of them (``cfg`` the unsharded model's).
+    Where ``tp`` does not divide the KV heads, ``wk``/``wv`` are placed
+    replicated, as in the reference, and the rank keeps the KV heads its
+    own q heads read (``kv_heads_of_rank``), so that the local GQA pairing
+    is the unsharded model's; the reference pairs rank r's q heads with
+    the first KV heads (ROADMAP Queue 3).  Otherwise ``p`` itself."""
+    if cfg.n_kv_heads % tp == 0:
+        return p
+    heads = kv_heads_of_rank(cfg.n_heads, cfg.n_kv_heads, tp, rank)
+    return {**p, "wk": _select_heads(p["wk"], heads, cfg.hd),
+            "wv": _select_heads(p["wv"], heads, cfg.hd)}
 
 
 def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -129,6 +178,32 @@ def _out_proj(p, cfg: ModelConfig, out, b, s, dtype):
     return out.reshape(b, s, -1) @ p["wo"].to(dtype)
 
 
+def _over_ranks(p, cfg: ModelConfig, x: torch.Tensor, cache, heads):
+    """``heads(p, x, cache) -> (out, cache)``, an attention mode before its
+    output projection, on each hosted rank's shard (``p`` a dict, or under
+    tensor parallelism the hosted ranks' list) and cache (one, or the
+    ranks' list), then the ranks' :func:`_out_proj` partials summed over
+    the axis (the reference's ``psum``)."""
+    b, s, _ = x.shape
+    group, ps = tp_group(cfg.tp_axis), shards(p)
+    caches = cache if isinstance(cache, list) else [cache] * len(ps)
+    res = [heads(p_r, x_r, c_r) for p_r, x_r, c_r in zip(ps, group.region(x), caches)]
+    y = group.all_reduce([_out_proj(p_r, cfg, out, b, s, x.dtype)
+                          for p_r, (out, _) in zip(ps, res)])[0]
+    new = [c for _, c in res]
+    return y, (new if isinstance(cache, list) else new[0])
+
+
+def _serving_params(p, cfg: ModelConfig):
+    """A serving mode's one parameter dict (``p``, or the one rank's of a
+    block's list); tensor parallelism raises, as the reference serves
+    without it."""
+    if cfg.tp_axis is not None:
+        raise ValueError("the serving attention modes (attn_sliced, attn_decode) take no "
+                         "tensor parallelism (cfg.tp_axis), as the reference's serving has none")
+    return shards(p)[0]
+
+
 def _write_rows(cache: torch.Tensor, x: torch.Tensor, start: int) -> torch.Tensor:
     """``cache[:, start:start+len(x)] = x``: in place while autograd is off,
     out of place (a new tensor) under grad."""
@@ -144,23 +219,27 @@ def attn_full(p, cfg: ModelConfig, x: torch.Tensor, *, causal: bool = True,
     """(B, S, D) -> (B, S, D).  Self-attention over the whole sequence:
     causal (the training forward), within ``window`` tokens if set, or
     bidirectional (``causal=False``: the encoder), which has no kernel."""
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, cfg, x, positions, rope=cfg.rope_theta > 0)
-    if cfg.use_kernel and causal and window == 0:
-        out = kops.terapipe_attention(q, k, v, ctx_len=0)
-    elif not causal:
-        out = (attention_blocked_bidir(q, k, v) if s > _BLOCKED_THRESHOLD
-               else attention_scores_gqa(q, k, v, mask=None))
-    elif s > _BLOCKED_THRESHOLD:
-        rep = q.shape[2] // k.shape[2]
-        out = attention_blocked(q, repeat_kv(k, rep), repeat_kv(v, rep), window=window)
-    elif window:
-        out = attention_scores_gqa(q, k, v, mask=local_causal_mask(s, s, window,
-                                                                   device=x.device)[None])
-    else:
-        out = attention_scores_gqa(q, k, v, mask=causal_mask(s, s, device=x.device)[None])
-    return _out_proj(p, cfg, out, b, s, x.dtype)
+    s = x.shape[1]
+
+    def heads(p, x, _):
+        positions = torch.arange(s, device=x.device)[None, :]
+        q, k, v = _project_qkv(p, cfg, x, positions, rope=cfg.rope_theta > 0)
+        if cfg.use_kernel and causal and window == 0:
+            out = kops.terapipe_attention(q, k, v, ctx_len=0)
+        elif not causal:
+            out = (attention_blocked_bidir(q, k, v) if s > _BLOCKED_THRESHOLD
+                   else attention_scores_gqa(q, k, v, mask=None))
+        elif s > _BLOCKED_THRESHOLD:
+            rep = q.shape[2] // k.shape[2]
+            out = attention_blocked(q, repeat_kv(k, rep), repeat_kv(v, rep), window=window)
+        elif window:
+            out = attention_scores_gqa(q, k, v, mask=local_causal_mask(s, s, window,
+                                                                       device=x.device)[None])
+        else:
+            out = attention_scores_gqa(q, k, v, mask=causal_mask(s, s, device=x.device)[None])
+        return out, None
+
+    return _over_ranks(p, cfg, x, None, heads)[0]
 
 
 def attn_sliced(p, cfg: ModelConfig, x_slice: torch.Tensor, kv_cache, ctx_len: int,
@@ -171,6 +250,7 @@ def attn_sliced(p, cfg: ModelConfig, x_slice: torch.Tensor, kv_cache, ctx_len: i
     kv_cache: (k, v) each (B, L_max, kv_heads, hd) — prefix written in [0, ctx_len)
     Returns (out_slice, kv_cache) with the slice's K/V written at ctx_len.
     """
+    p = _serving_params(p, cfg)
     b, l, _ = x_slice.shape
     positions = (torch.arange(l, device=x_slice.device) + ctx_len)[None, :]
     q, k, v = _project_qkv(p, cfg, x_slice, positions, rope=cfg.rope_theta > 0)
@@ -206,25 +286,30 @@ def attn_sliced_dyn(p, cfg: ModelConfig, x_slice: torch.Tensor, kv_cache, ctx,
     the rows it reads, which gives the same result, and no dK/dV work or
     zero tiles for the unused rows.
     """
-    b, l, _ = x_slice.shape
+    l = x_slice.shape[1]
     ctx = int(ctx)
-    positions = (torch.arange(l, device=x_slice.device) + ctx)[None, :]
-    q, k, v = _project_qkv(p, cfg, x_slice, positions, rope=cfg.rope_theta > 0)
-    ck, cv = kv_cache
-    ck = _write_rows(ck, k, ctx)
-    cv = _write_rows(cv, v, ctx)
-    lo = max(0, ctx - window + 1) if window else 0
-    k_all = ck[:, lo:ctx + l].to(q.dtype)
-    v_all = cv[:, lo:ctx + l].to(q.dtype)
-    if cfg.use_kernel and window == 0:
-        out = kops.terapipe_attention(q, k_all, v_all, ctx_len=ctx)
-    elif window:
-        mask = local_causal_mask(l, ctx + l - lo, window, q_offset=ctx - lo, device=q.device)
-        out = attention_scores_gqa(q, k_all, v_all, mask=mask[None])
-    else:
-        mask = causal_mask(l, ctx + l, q_offset=ctx, device=q.device)
-        out = attention_scores_gqa(q, k_all, v_all, mask=mask[None])
-    return _out_proj(p, cfg, out, b, l, x_slice.dtype), (ck, cv)
+
+    def heads(p, x_slice, kv_cache):
+        positions = (torch.arange(l, device=x_slice.device) + ctx)[None, :]
+        q, k, v = _project_qkv(p, cfg, x_slice, positions, rope=cfg.rope_theta > 0)
+        ck, cv = kv_cache
+        ck = _write_rows(ck, k, ctx)
+        cv = _write_rows(cv, v, ctx)
+        lo = max(0, ctx - window + 1) if window else 0
+        k_all = ck[:, lo:ctx + l].to(q.dtype)
+        v_all = cv[:, lo:ctx + l].to(q.dtype)
+        if cfg.use_kernel and window == 0:
+            out = kops.terapipe_attention(q, k_all, v_all, ctx_len=ctx)
+        elif window:
+            mask = local_causal_mask(l, ctx + l - lo, window, q_offset=ctx - lo,
+                                     device=q.device)
+            out = attention_scores_gqa(q, k_all, v_all, mask=mask[None])
+        else:
+            mask = causal_mask(l, ctx + l, q_offset=ctx, device=q.device)
+            out = attention_scores_gqa(q, k_all, v_all, mask=mask[None])
+        return out, (ck, cv)
+
+    return _over_ranks(p, cfg, x_slice, kv_cache, heads)
 
 
 def attn_decode(p, cfg: ModelConfig, x_tok: torch.Tensor, kv_cache, pos,
@@ -239,6 +324,7 @@ def attn_decode(p, cfg: ModelConfig, x_tok: torch.Tensor, kv_cache, pos,
     attends over the slots that hold one of the last ``window`` positions,
     whatever ``L_max`` is.
     """
+    p = _serving_params(p, cfg)
     b = x_tok.shape[0]
     pos_t = torch.as_tensor(pos, device=x_tok.device)
     if pos_t.dim() > 0:

@@ -3,7 +3,21 @@
 Plain functions over tensors and explicit parameter dicts, in the JAX
 package's layouts: weights ``(d_in, d_out)`` applied as ``x @ w``, stored in
 float32 and cast to the activation dtype at each use.  The activation
-sharding helpers of the reference have no counterpart on one device.
+sharding helpers of the reference (hints to XLA's sharding propagation)
+have no eager counterpart.
+
+Manual tensor parallelism (Megatron, inside the pipeline's stages): where
+the reference's ``cfg.tp_axis`` names a mesh axis that the blocks ``psum``
+over, the port's is the axis's group (:class:`LocalGroup`, or
+``distributed.transport.DistGroup`` across processes).  A group hosts some
+ranks of its axis (``ranks``: every one in process, one per process
+otherwise), and under it a block's parameters (and caches) are the list of
+the hosted ranks' shards, in ``ranks`` order; the activation between the
+blocks is replicated, one tensor.  A reducing block runs its partial on
+each hosted rank's shard and sums them with ``all_reduce``; without tensor
+parallelism it runs the same code on one rank (a dict ``p``, the group a
+one-rank ``LocalGroup``).  The serving modes take no tensor parallelism,
+as the reference's serving has none.
 """
 from __future__ import annotations
 
@@ -59,6 +73,8 @@ class ModelConfig:
     remat: bool = True
     remat_policy: str = "full"
     use_kernel: bool = False         # route attention through the CUDA kernels
+    # manual tensor parallelism: the axis's group (LocalGroup, DistGroup);
+    # the blocks take the hosted ranks' shards and all_reduce the partials
     tp_axis: Any = None
 
     @property
@@ -67,6 +83,88 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the in-process group and the blocks' helpers
+# ---------------------------------------------------------------------------
+class _FanOut(torch.autograd.Function):
+    """``n`` views of ``x``, whose gradients are summed in order."""
+
+    @staticmethod
+    def forward(ctx, x, n: int):
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = None
+        for g in grads:
+            if g is not None:
+                total = g if total is None else total + g
+        return total, None
+
+
+class LocalGroup:
+    """A mesh axis whose every rank lives in this process (virtual ranks,
+    the counterpart of ``core/pipeline.py::LocalRing``): ``ranks`` are the
+    hosted ranks, all ``size`` of them.  ``all_reduce`` takes one value per
+    hosted rank, sums them in rank order (so two runs are bit-identical)
+    and hands the sum to each.  ``region(x)`` gives each hosted rank its
+    view of the replicated input of a tensor-parallel region (Megatron's
+    ``f``); the ranks' gradients of it are summed in rank order, as a
+    process group's all_reduce of them would be."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.ranks = tuple(range(size))
+
+    def all_reduce(self, values: list) -> list:
+        assert len(values) == self.size, (len(values), self.size)
+        total = values[0]
+        for v in values[1:]:
+            total = total + v
+        return [total] * self.size
+
+    def region(self, x: torch.Tensor) -> list:
+        if self.size == 1:
+            return [x]
+        return list(_FanOut.apply(x, self.size))
+
+    def __repr__(self) -> str:
+        return f"LocalGroup({self.size})"
+
+
+_NO_TP = LocalGroup(1)
+
+
+def tp_group(tp_axis):
+    """The group a block reduces over: ``tp_axis``, or without tensor
+    parallelism (``None``) a one-rank :class:`LocalGroup`, whose ``region``
+    and ``all_reduce`` hand the one value back.  The reference's kind, a
+    mesh axis name, raises ``TypeError``."""
+    if tp_axis is None:
+        return _NO_TP
+    if not hasattr(tp_axis, "all_reduce"):
+        raise TypeError(f"cfg.tp_axis must be a group with ranks, size and all_reduce "
+                        f"(LocalGroup, distributed.transport.DistGroup), not {tp_axis!r}")
+    return tp_axis
+
+
+def shards(p) -> list:
+    """A block's parameters as the hosted ranks' shards: under tensor
+    parallelism ``p`` is that list; a dict ``p`` is the one rank's."""
+    return p if isinstance(p, list) else [p]
+
+
+def per_rank(p, key: str) -> list:
+    """Each hosted rank's ``[key]`` of ``p`` (:func:`shards`)."""
+    return [q[key] for q in shards(p)]
+
+
+def replicated(p, key: str):
+    """``[key]`` of a leaf every rank holds whole (a norm's scale): the
+    first hosted rank's."""
+    return shards(p)[0][key]
 
 
 # ---------------------------------------------------------------------------

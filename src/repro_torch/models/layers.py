@@ -1,12 +1,17 @@
 """Dense transformer block: pre-RMSNorm attention + SwiGLU FFN (reference:
 ``repro/models/layers.py``), in the full, sliced, sliced_dyn and decode
-modes of :mod:`repro_torch.models.attention`."""
+modes of :mod:`repro_torch.models.attention`.  Under tensor parallelism
+(``cfg.tp_axis`` a group) a block's ``p`` and cache are the hosted ranks'
+lists (``models/common.py``): the attention and the FFN each reduce their
+partial outputs once, the norms run once on the replicated activation.
+The serving modes (sliced, decode) take no tensor parallelism."""
 from __future__ import annotations
 
 import torch
 
 from . import attention as attn_mod
-from .common import ModelConfig, dense_init, rms_norm, swiglu
+from .common import (ModelConfig, dense_init, per_rank, replicated, rms_norm, shards, swiglu,
+                     tp_group)
 
 
 def init_ffn(gen: torch.Generator, cfg: ModelConfig, d_ff: int = 0):
@@ -23,9 +28,18 @@ def ffn_specs(cfg: ModelConfig):
     return {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"), "w_down": ("ff", "embed")}
 
 
-def ffn(p, x: torch.Tensor) -> torch.Tensor:
+def _ffn_partial(p, x: torch.Tensor) -> torch.Tensor:
     h = swiglu(x @ p["w_gate"].to(x.dtype), x @ p["w_up"].to(x.dtype))
     return h @ p["w_down"].to(x.dtype)
+
+
+def ffn(p, x: torch.Tensor, tp_axis=None) -> torch.Tensor:
+    """SwiGLU FFN: each hosted rank's partial output (``p`` a dict, or
+    under ``tp_axis``, a group, the hosted ranks' column/row shards of
+    ``ff``), summed over the axis (the reference's ``psum``)."""
+    group = tp_group(tp_axis)
+    return group.all_reduce([_ffn_partial(p_r, x_r)
+                             for p_r, x_r in zip(shards(p), group.region(x))])[0]
 
 
 def init_dense_block(gen: torch.Generator, cfg: ModelConfig):
@@ -46,9 +60,9 @@ def dense_block_specs(cfg: ModelConfig):
 
 def dense_block_full(p, cfg: ModelConfig, x: torch.Tensor, *, causal: bool = True,
                      window: int = 0) -> torch.Tensor:
-    x = x + attn_mod.attn_full(p["attn"], cfg, rms_norm(x, p["ln_attn"]),
+    x = x + attn_mod.attn_full(per_rank(p, "attn"), cfg, rms_norm(x, replicated(p, "ln_attn")),
                                causal=causal, window=window)
-    x = x + ffn(p["ffn"], rms_norm(x, p["ln_ffn"]))
+    x = x + ffn(per_rank(p, "ffn"), rms_norm(x, replicated(p, "ln_ffn")), cfg.tp_axis)
     return x
 
 
@@ -64,10 +78,11 @@ def dense_block_sliced(p, cfg: ModelConfig, x: torch.Tensor, kv_cache, ctx_len: 
 def dense_block_sliced_dyn(p, cfg: ModelConfig, x: torch.Tensor, kv_cache, ctx,
                            *, window: int = 0):
     """Variant with a context offset that is data (the lockstep pipeline)."""
-    a, kv_cache = attn_mod.attn_sliced_dyn(p["attn"], cfg, rms_norm(x, p["ln_attn"]),
+    a, kv_cache = attn_mod.attn_sliced_dyn(per_rank(p, "attn"), cfg,
+                                           rms_norm(x, replicated(p, "ln_attn")),
                                            kv_cache, ctx, window=window)
     x = x + a
-    x = x + ffn(p["ffn"], rms_norm(x, p["ln_ffn"]))
+    x = x + ffn(per_rank(p, "ffn"), rms_norm(x, replicated(p, "ln_ffn")), cfg.tp_axis)
     return x, kv_cache
 
 

@@ -49,7 +49,7 @@ from . import layers as layers_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
-from .common import ModelConfig, embed_init, make_generator, rms_norm
+from .common import ModelConfig, embed_init, make_generator, per_rank, replicated, rms_norm
 
 Params = Dict[str, Any]
 
@@ -261,22 +261,27 @@ def _make_dense_group(cfg: ModelConfig, name: str, count: int, device):
 
 
 def _make_moe_group(cfg: ModelConfig, name: str, count: int, device):
-    """Pre-norm attention, then the MoE FFN (reference ``lm.py:222-267``)."""
+    """Pre-norm attention, then the MoE FFN (reference ``lm.py:222-267``);
+    under tensor parallelism ``bp`` is the hosted ranks' list of shards."""
     def init_one(gen):
         zeros = lambda: torch.zeros((cfg.d_model,), dtype=torch.float32, device=gen.device)
         return {"attn": attn_mod.init_attn(gen, cfg), "moe": moe_mod.init_moe(gen, cfg),
                 "ln_attn": zeros(), "ln_ffn": zeros()}
 
     def ffn(bp, x):
-        return x + moe_mod.moe_ffn(bp["moe"], cfg, rms_norm(x, bp["ln_ffn"]))
+        return x + moe_mod.moe_ffn(per_rank(bp, "moe"), cfg,
+                                   rms_norm(x, replicated(bp, "ln_ffn")))
+
+    def attn_in(bp, x):
+        return per_rank(bp, "attn"), cfg, rms_norm(x, replicated(bp, "ln_attn"))
 
     def full(bp, x):
-        x = x + attn_mod.attn_full(bp["attn"], cfg, rms_norm(x, bp["ln_attn"]))
+        x = x + attn_mod.attn_full(*attn_in(bp, x))
         return ffn(bp, x)
 
     def with_cache(attn_fn):
         def block(bp, x, cache, arg):
-            a, cache = attn_fn(bp["attn"], cfg, rms_norm(x, bp["ln_attn"]), cache, arg)
+            a, cache = attn_fn(*attn_in(bp, x), cache, arg)
             return ffn(bp, x + a), cache
         return block
 
@@ -292,11 +297,13 @@ def _make_moe_group(cfg: ModelConfig, name: str, count: int, device):
 
 
 def _make_state_group(cfg: ModelConfig, name: str, count: int, device, *, block, step,
-                      init_state, init_block, block_specs):
+                      init_state, init_block, block_specs, check_no_tp):
     """Recurrent blocks whose cache is the state they carry, f32 whatever
     ``dtype``: Mamba-2 (``(conv, ssm)``, reference ``lm.py:270-288``) or
     RG-LRU, the hybrid's tail (``(conv, h)``, ``lm.py:291-307``).  ``block``
-    runs a slice from a state (``None``: zeros), ``step`` one token."""
+    runs a slice from a state (``None``: zeros), ``step`` one token.  Both
+    refuse tensor parallelism when the group is built (``check_no_tp``)."""
+    check_no_tp(cfg)
     def full(bp, x):
         return block(bp, cfg, x, None)[0]
 
@@ -322,6 +329,7 @@ def _make_super_group(cfg: ModelConfig, name: str, count: int, device):
     rec states stacked over the block's rec layers; the decode writes K/V
     into a ring (``ring=True``), of ``min(max_len, window)`` rows when
     ``init_cache`` is asked for ``mode="decode"``."""
+    rglru_mod.check_no_tp(cfg)
     n_rec = sum(1 for b in cfg.block_pattern if b == "rec")
     w = cfg.window
 
@@ -376,12 +384,14 @@ _GROUP_MAKERS = {
     "moe": _make_moe_group,
     "ssm": functools.partial(_make_state_group, block=ssm_mod.mamba2_block,
                              step=ssm_mod.mamba2_decode, init_state=ssm_mod.init_ssm_state,
-                             init_block=ssm_mod.init_mamba2, block_specs=ssm_mod.mamba2_specs),
+                             init_block=ssm_mod.init_mamba2, block_specs=ssm_mod.mamba2_specs,
+                             check_no_tp=ssm_mod.check_no_tp),
     "rec": functools.partial(_make_state_group, block=rglru_mod.rec_block,
                              step=rglru_mod.rec_block_decode,
                              init_state=rglru_mod.init_rec_state,
                              init_block=rglru_mod.init_rec_block,
-                             block_specs=rglru_mod.rec_block_specs),
+                             block_specs=rglru_mod.rec_block_specs,
+                             check_no_tp=rglru_mod.check_no_tp),
     "super": _make_super_group,
 }
 

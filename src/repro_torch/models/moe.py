@@ -25,17 +25,20 @@ What differs from the reference, and why the result does not:
   Nothing is scattered with atomics, so a step repeats bit for bit on the
   card.  The combine is a weighted sum over each token's k choices, an
   ``(S, k, D)`` tensor, not a scatter-add.
-* The reference's ``shard_map`` layout of the dispatch and its
-  expert-parallel branch (``cfg.tp_axis``) need meshes, which the port has
-  not yet (ROADMAP Queue 1 item 9): ``cfg.tp_axis`` raises.
+* Expert parallelism (``cfg.tp_axis``): the reference routes on every
+  rank; here a process routes once for the ranks it hosts (the same
+  global routing) and each rank dispatches to its own experts.  The
+  reference's ``shard_map`` layout of the dispatch over the data axes is
+  a hint to XLA's sharding propagation, with no eager counterpart.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
-from .common import ModelConfig, dense_init, swiglu
+from .common import ModelConfig, dense_init, shards, swiglu, tp_group
 from .layers import ffn as dense_ffn, ffn_specs, init_ffn
 
 #: The routing record, off (``None``) by default.  Set to a list, every
@@ -98,15 +101,25 @@ class _Gather(torch.autograd.Function):
         return d.reshape(-1, ctx.fold, d.shape[-1]).sum(1), None, None, None
 
 
-def _route_groups(p, cfg: ModelConfig, xg: torch.Tensor) -> torch.Tensor:
-    """Route G token groups at once (the reference's ``_route_group`` under
-    ``vmap``).  xg: (G, S, D) -> (G, S, D)."""
+class _Routing(NamedTuple):
+    """The global routing of G groups: renormalised top-k weights and
+    experts ``(G, S, k)``, the flat choices' experts and queue positions
+    ``(G, S·k)``, which fit the capacity, and the capacity."""
+    topw: torch.Tensor
+    flat_e: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    capacity: int
+
+
+def _route(router: torch.Tensor, cfg: ModelConfig, xg: torch.Tensor) -> _Routing:
+    """Top-k routing of G token groups over all ``cfg.n_experts``, with the
+    capacity counted over them: the same on every expert-parallel rank."""
     g, s, d = xg.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     capacity = max(1, math.ceil(cfg.capacity_factor * s * k / e))
-    dev = xg.device
 
-    logits = (xg @ p["router"].to(xg.dtype)).float()                      # (G, S, E)
+    logits = (xg @ router.to(xg.dtype)).float()                           # (G, S, E)
     gates = torch.softmax(logits, dim=-1)
     topw, topi = torch.topk(gates, k, dim=-1)                             # (G, S, k)
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
@@ -116,12 +129,34 @@ def _route_groups(p, cfg: ModelConfig, xg: torch.Tensor) -> torch.Tensor:
     # flat token-major (S * k) order
     with torch.no_grad():
         flat_e = topi.reshape(g, s * k)
-        onehot = (flat_e[..., None] == torch.arange(e, device=dev)).to(torch.int32)
+        onehot = (flat_e[..., None] == torch.arange(e, device=xg.device)).to(torch.int32)
         pos = torch.gather(torch.cumsum(onehot, dim=1), 2, flat_e[..., None])[..., 0] - 1
         keep = pos < capacity
+    if ROUTING_LOG is not None:
+        ROUTING_LOG.append((router, topi, keep, torch.is_grad_enabled()))
+    return _Routing(topw, flat_e, pos, keep, capacity)
+
+
+def _route_groups(p, cfg: ModelConfig, xg: torch.Tensor, routing: Optional[_Routing] = None,
+                  rank: int = 0) -> torch.Tensor:
+    """Route G token groups at once (the reference's ``_route_group`` under
+    ``vmap``).  xg: (G, S, D) -> (G, S, D).  Under expert parallelism
+    (``p`` holds ``e_local < n_experts`` experts: rank ``rank``'s, experts
+    ``[rank·e_local, (rank+1)·e_local)``) the global ``routing`` is kept
+    for the local experts only; every other choice goes to the overflow
+    bin, and the output is this rank's partial."""
+    g, s, d = xg.shape
+    k = cfg.moe_top_k
+    topw, flat_e, pos, keep, capacity = routing or _route(p["router"], cfg, xg)
+    e_local = p["w_gate"].shape[0]
+    dev = xg.device
+    with torch.no_grad():
+        off = rank * e_local
+        keep = keep & (flat_e >= off) & (flat_e < off + e_local)
+        flat_e = flat_e - off
         # expert-major slots over every group: (expert, group, position);
         # dropped choices go to the overflow index n_slots (a zero row)
-        n_slots, n_choice = e * g * capacity, g * s * k
+        n_slots, n_choice = e_local * g * capacity, g * s * k
         grp = torch.arange(g, device=dev)[:, None]
         slot = torch.where(keep, flat_e * (g * capacity) + grp * capacity + pos,
                            n_slots).reshape(-1)                           # (G*S*k,)
@@ -130,12 +165,10 @@ def _route_groups(p, cfg: ModelConfig, xg: torch.Tensor) -> torch.Tensor:
         choice.scatter_(0, slot, torch.arange(n_choice, device=dev))
         choice = choice[:n_slots]
         token = torch.where(choice < n_choice, choice // k, g * s)
-    if ROUTING_LOG is not None:
-        ROUTING_LOG.append((p["router"], topi, keep, torch.is_grad_enabled()))
 
     # expert_in[e, (g, c)] = the group's token in that slot (zeros where empty)
     expert_in = _Gather.apply(xg.reshape(g * s, d), token, slot, k)
-    expert_in = expert_in.reshape(e, g * capacity, d)
+    expert_in = expert_in.reshape(e_local, g * capacity, d)
     h = swiglu(torch.bmm(expert_in, p["w_gate"].to(xg.dtype)),
                torch.bmm(expert_in, p["w_up"].to(xg.dtype)))
     expert_out = torch.bmm(h, p["w_down"].to(xg.dtype)).reshape(n_slots, d)
@@ -152,17 +185,28 @@ def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
     Routing groups are fixed ``cfg.moe_block``-token blocks (never whole
     sequences): a slice that is a multiple of the block holds whole groups,
-    so capacity drops do not depend on how the sequence is sliced."""
-    if cfg.tp_axis is not None:
-        raise NotImplementedError("MoE expert parallelism (cfg.tp_axis): not yet ported "
-                                  "(ROADMAP Queue 1 item 9)")
+    so capacity drops do not depend on how the sequence is sliced.
+
+    Under tensor parallelism (``cfg.tp_axis`` a group, ``p`` the hosted
+    ranks' shards: each a slice of the experts and of the shared experts'
+    ``ff``) the routing is computed once over all experts from the
+    replicated router, each rank runs its experts and its share of the
+    shared experts, and the partials are summed once (reference
+    ``moe.py:162-165``)."""
     b, s, d = x.shape
     blk = min(cfg.moe_block, s)
     assert s % blk == 0, f"seq {s} not a multiple of moe_block {blk}"
-    out = _route_groups(p, cfg, x.reshape(b * (s // blk), blk, d)).reshape(b, s, d)
-    if cfg.n_shared_experts:
-        out = out + dense_ffn(p["shared"], x)
-    return out
+    group, ps = tp_group(cfg.tp_axis), shards(p)
+    xs = group.region(x)
+    xgs = [x_r.reshape(b * (s // blk), blk, d) for x_r in xs]
+    routing = _route(ps[0]["router"], cfg, xgs[0])
+    parts = []
+    for r, p_r, x_r, xg in zip(group.ranks, ps, xs, xgs):
+        out = _route_groups(p_r, cfg, xg, routing, r).reshape(b, s, d)
+        if cfg.n_shared_experts:
+            out = out + dense_ffn(p_r["shared"], x_r)
+        parts.append(out)
+    return group.all_reduce(parts)[0]
 
 
 def aux_load_balance_loss(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,8 @@ elementwise ops over ``(B, L, D)``, out of place.  Neither a Python loop over
 tokens (thousands of launches per block at 2048 tokens) nor a closed form
 through the cumulative product of ``a`` (which underflows float32 within a
 few dozen tokens, at ``log a ≈ -7.8 r`` per step, and would be divided by).
-Manual tensor parallelism (``cfg.tp_axis``) raises: ROADMAP Queue 1 item 9.
+Manual tensor parallelism (``cfg.tp_axis``) raises (:func:`check_no_tp`):
+the reference's rec block cannot run under it (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -24,9 +25,23 @@ import torch
 import torch.nn.functional as F
 
 from .common import ModelConfig, dense_init, rms_norm
-from .ssm import _causal_conv, _check_no_tp
+from .ssm import _causal_conv
 
 _C = 8.0  # RG-LRU temperature constant (Griffin paper)
+
+
+def check_no_tp(cfg: ModelConfig) -> None:
+    """The rec block refuses tensor parallelism: its gates ``w_a`` and
+    ``w_i`` are specced ``("embed", "ff")``, so TP shards their output dim,
+    but they are applied to the branch ``xf``, which is already sharded
+    over ``ff``: the contraction's two sides differ (the reference raises a
+    ``dot_general`` shape error at tp 2)."""
+    if cfg.tp_axis is not None:
+        raise NotImplementedError(
+            "rec block under tensor parallelism (cfg.tp_axis): w_a and w_i ('embed', 'ff') "
+            "contract the ff-sharded branch xf over the full width, so no TP layout of the "
+            "reference's specs computes it (the reference's fault at tp 2: dot_general "
+            "contracting dimensions differ; ROADMAP Queue 3)")
 
 
 def init_rec_block(gen: torch.Generator, cfg: ModelConfig):
@@ -73,7 +88,7 @@ def _rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor]):
 
 def rec_block(p, cfg: ModelConfig, x: torch.Tensor, state=None):
     """Full/sliced forward.  x (b, L, d); state = (conv_state, h0) | None."""
-    _check_no_tp(cfg)
+    check_no_tp(cfg)
     h = rms_norm(x, p["ln"])
     xr = h @ p["w_x"].to(h.dtype)
     gate = F.gelu(h @ p["w_y"].to(h.dtype), approximate="tanh")   # jax.nn.gelu's default

@@ -20,8 +20,8 @@ differs from the reference, and why the result does not:
   times as large).
 * The ``lax.scan`` over chunks is a Python loop of ``L / chunk`` steps, out
   of place, so autograd differentiates it as written.
-* Manual tensor parallelism (``cfg.tp_axis``) raises: meshes are ROADMAP
-  Queue 1 item 9.
+* Manual tensor parallelism (``cfg.tp_axis``) raises, as the reference's
+  assert does (``models/ssm.py:137``).
 """
 from __future__ import annotations
 
@@ -33,10 +33,10 @@ import torch.nn.functional as F
 from .common import ModelConfig, dense_init, rms_norm
 
 
-def _check_no_tp(cfg: ModelConfig) -> None:
+def check_no_tp(cfg: ModelConfig) -> None:
     if cfg.tp_axis is not None:
-        raise NotImplementedError("manual tensor parallelism (cfg.tp_axis): not yet ported "
-                                  "(ROADMAP Queue 1 item 9)")
+        raise NotImplementedError("mamba2 blocks do not support manual tensor parallelism "
+                                  "(cfg.tp_axis), as the reference asserts (models/ssm.py:137)")
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -157,7 +157,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 def mamba2_block(p, cfg: ModelConfig, x: torch.Tensor, state=None):
     """Full/sliced forward.  x (b, L, d).  state = (conv_state, ssm_state) | None.
     Returns (y, new_state)."""
-    _check_no_tp(cfg)
+    check_no_tp(cfg)
     d_inner = cfg.ssm_expand * cfg.d_model
     N, P = cfg.ssm_state, cfg.ssm_head_dim
     H = d_inner // P
@@ -184,7 +184,7 @@ def mamba2_block(p, cfg: ModelConfig, x: torch.Tensor, state=None):
 
 def mamba2_decode(p, cfg: ModelConfig, x_tok: torch.Tensor, state):
     """Single-token recurrent step.  x_tok (b, 1, d)."""
-    _check_no_tp(cfg)
+    check_no_tp(cfg)
     d_inner = cfg.ssm_expand * cfg.d_model
     N, P = cfg.ssm_state, cfg.ssm_head_dim
     H = d_inner // P

@@ -185,9 +185,11 @@ def test_gather_backward_is_the_scatter_add_it_replaces():
 
 
 def test_tp_axis_raises():
+    """Expert parallelism takes a group (tests/test_torch_parallel.py); the
+    reference's kind of ``tp_axis``, a mesh axis name, raises."""
     cfg = get_config("qwen3-moe-235b-a22b", smoke=True).replace(tp_axis="model")
     p = moe.init_moe(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="group"):
         moe.moe_ffn(p, cfg, torch.zeros(1, 8, cfg.d_model))
 
 

@@ -225,9 +225,9 @@ def test_rec_block_matches_jax(models):
     td, (tdc, tdh) = rglru.rec_block_decode(tp, tcfg, _t(x[:, :1]), (tc, th))
     for t, j in ((td, jd), (tdc, jdc), (tdh, jdh)):
         _close(t, j)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="w_a and w_i"):
         rglru.rec_block(tp, tcfg.replace(tp_axis="model"), _t(x))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="mamba2"):
         ssm.mamba2_block(_layer0(params_from_jax(models[MAMBA][1], "cpu"), "blocks"),
                          _configs(MAMBA)[1].replace(tp_axis="model"), _t(x))
 
