@@ -186,6 +186,17 @@ result line):
                running gpt3 SMOKE f32 on pipe 2 (DistRing, 1f1b), tp 2 and
                data 2 (DistGroup), bit-equal in loss and every gradient to
                the in-process LocalRing/LocalGroup run;
+ 8e. dryrun  — launch/dryrun.py's prediction on the meta device, no step on
+               the card: gpt3-1b's make_train_step at batch 4 x seq 2048
+               with kernels (as phase 8c ran it) and the contiguous M 8
+               step on pipe 4 through launch.train.train_step (as phase 8d
+               ran it), each traced once; its kernel calls equal to the
+               card's launches per step, its FLOPs equal to
+               FlopCounterMode's count of one card step plus the kernels'
+               FLOPs by ops.attention_flops for the card's calls, its peak
+               above the state within DRYRUN_PEAK_BOUND of the card's
+               max_memory_allocated, nothing allocated on the card; the
+               peak's breakdown by category printed;
   9. times   — each kernel at a main-path shape (CUDA events, median of 30
                after warm-up, L2 flushed before each launch) beside its
                bound, its plain version and one PyTorch library call; the
@@ -208,6 +219,7 @@ The line before last is one JSON object {"kernels": [...]}; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -227,10 +239,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
 from repro_torch.analysis import audit, errors  # noqa: E402
-from repro_torch.configs import (ARCHS, PAPER_ARCHS, SHAPES, get_config,  # noqa: E402
-                                 input_specs, skip_reason)
+from repro_torch.configs import (ARCHS, PAPER_ARCHS, SHAPES, ShapeSpec,  # noqa: E402
+                                 get_config, input_specs, skip_reason)
 from repro_torch.core.cost_model import (H100, AnalyticCostModel,  # noqa: E402
                                          fit_efficiency_and_floor,
                                          measure_kernel_cost_table)
@@ -253,6 +266,7 @@ from repro_torch.kernels.terapipe_attention import (HEAD_DIMS,  # noqa: E402
                                                      terapipe_attention_fwd)
 from repro_torch.kernels.terapipe_attention_bwd import (  # noqa: E402
     terapipe_attention_bwd, terapipe_attention_dkv, terapipe_attention_dq)
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.launch.steps import (abstract_caches, abstract_init,  # noqa: E402
@@ -275,6 +289,39 @@ COUNTERS = {"terapipe_attention_fwd": terapipe_attention_fwd,
             "decode_attention": decode_attention_kernel,
             "terapipe_attention_dq": terapipe_attention_dq,
             "terapipe_attention_dkv": terapipe_attention_dkv}
+
+
+#: the card's steps that phase 8e predicts: per run, the launches of its
+#: steps, their number, the peak above the state (bytes) and one step's FLOPs
+CARD_STEPS: Dict[str, dict] = {}
+
+
+@contextlib.contextmanager
+def _card_flops():
+    """FlopCounterMode over a block on the card, plus each attention
+    kernel call's FLOPs by ops.attention_flops (the kernels run outside
+    the dispatcher, so the mode does not see them).  Yields a dict whose
+    "flops" is set when the block ends."""
+    out = {"kernel_flops": 0}
+    fwd, bwd = ops.terapipe_attention_fwd, ops.terapipe_attention_bwd
+
+    def fwd_counted(q, k, v, ctx):
+        out["kernel_flops"] += ops.attention_flops(q, ctx)["terapipe_attention_fwd"]
+        return fwd(q, k, v, ctx)
+
+    def bwd_counted(q, k, v, do, lse, delta, ctx):
+        f = ops.attention_flops(q, ctx)
+        out["kernel_flops"] += f["terapipe_attention_dq"] + f["terapipe_attention_dkv"]
+        return bwd(q, k, v, do, lse, delta, ctx)
+
+    ops.terapipe_attention_fwd, ops.terapipe_attention_bwd = fwd_counted, bwd_counted
+    try:
+        with FlopCounterMode(display=False) as fc:
+            yield out
+    finally:
+        ops.terapipe_attention_fwd, ops.terapipe_attention_bwd = fwd, bwd
+    out["matmul_flops"] = fc.get_total_flops()
+    out["flops"] = out["matmul_flops"] + out["kernel_flops"]
 
 
 def log(msg: str) -> None:
@@ -2353,11 +2400,12 @@ def _train_step_vs_launcher(cfg) -> tuple:
     data = train_launch.make_data(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)
     batch = lambda i: {k: torch.from_numpy(a).cuda() for k, a in data.batch_at(i).items()}
     make_opt = lambda: adamw(cosine_schedule(3e-4, 1, LAYOUT_STEPS))
-    peaks = {}
+    peaks, peak_bytes = {}, {}
 
     def peak_above(label, base):
         torch.cuda.synchronize()
-        peaks[label] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        peak_bytes[label] = torch.cuda.max_memory_allocated() - base
+        peaks[label] = peak_bytes[label] / 2**30
 
     opt = make_opt()
     state = {"params": tree_map(lambda p: p.requires_grad_(True), model.init(seed=0))}
@@ -2403,7 +2451,15 @@ def _train_step_vs_launcher(cfg) -> tuple:
         raise AssertionError(f"make_train_step launches {counts} != {want_counts}")
     del opt_state
     torch.cuda.empty_cache()
-    _, grads = vg(tree_map(lambda p: p.requires_grad_(True), params), batch(LAYOUT_STEPS))
+    params = tree_map(lambda p: p.requires_grad_(True), params)
+    # one value-and-grad with its FLOPs counted (AdamW adds none), after the
+    # peak was read and apart from the gradients compressed below:
+    # FlopCounterMode decomposes some ops, which changes their values
+    with _card_flops() as flops:
+        vg(params, batch(LAYOUT_STEPS))
+    CARD_STEPS["gspmd"] = {"counts": counts, "steps": LAYOUT_STEPS,
+                           "peak_bytes": peak_bytes["make_train_step"], **flops}
+    _, grads = vg(params, batch(LAYOUT_STEPS))
     del params
     torch.cuda.empty_cache()
     return counts, grads
@@ -2596,13 +2652,15 @@ GLOO_CASES = (("pipe 2, DistRing, 1f1b", Mesh(pipe=2), "1f1b"),
 GLOO_BATCH, GLOO_SEQ, GLOO_THREADS = 4, 32, 2
 
 
-def _mesh_steps(cfg, tcfg: TeraPipeConfig, mesh: Mesh, label: str) -> tuple:
+def _mesh_steps(cfg, tcfg: TeraPipeConfig, mesh: Mesh, label: str,
+                card: Optional[str] = None) -> tuple:
     """PAR_STEPS AdamW steps of gpt3-1b at batch 4 x seq 2048 through
     launch.train.train_step (the launcher's step) with the pipelined
     value-and-grad on ``mesh``, every launch counter set to 0 just before
     and read just after: finite losses within 1 of ln V, launches exactly
     _launches_per_step's.  Returns the counts and ms/step (median of steps
-    2 on, each synchronised) and the peak above the state."""
+    2 on, each synchronised) and the peak above the state.  ``card``: a
+    CARD_STEPS key for phase 8e, with one more value-and-grad's FLOPs."""
     model = build_model(cfg.replace(use_kernel=True))
     vg = make_terapipe_value_and_grad(model, tcfg, TRAIN_SEQ, TRAIN_BATCH, mesh)
     opt = adamw(cosine_schedule(3e-4, 1, PAR_STEPS))
@@ -2622,7 +2680,13 @@ def _mesh_steps(cfg, tcfg: TeraPipeConfig, mesh: Mesh, label: str) -> tuple:
         ms.append((time.time() - t0) * 1e3)
     torch.cuda.synchronize()
     counts = {name: fn.launches for name, fn in COUNTERS.items()}
-    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    peak_bytes = torch.cuda.max_memory_allocated() - base
+    peak = peak_bytes / 2**30
+    if card is not None:
+        with _card_flops() as flops:
+            vg(state["params"], batch)
+        CARD_STEPS[card] = {"counts": counts, "steps": PAR_STEPS, "peak_bytes": peak_bytes,
+                            **flops}
     per_step = _launches_per_step(cfg, vg.plan.DM, tp=vg.plan.tp, data=vg.plan.data)
     want = {k: per_step.get(k, 0) * PAR_STEPS for k in COUNTERS}
     step_ms = statistics.median(ms[1:])
@@ -2823,7 +2887,8 @@ def phase_parallel() -> dict:
     torch.cuda.empty_cache()
     counts, runs = {}, {}
     for label, mesh in ((f"pipe {PIPE_RANKS}", PAR_BASE), ("data 2 x pipe 2 x tp 2", PAR_MESH)):
-        counts[label], runs[label] = _mesh_steps(cfg, tcfg, mesh, label)
+        counts[label], runs[label] = _mesh_steps(cfg, tcfg, mesh, label,
+                                                 "pipe" if mesh == PAR_BASE else None)
     log("[parallel] contiguous M " + str(PIPE_SLICES) + ": " + "; ".join(
         f"{k} {m['step_ms']:.1f} ms/step, peak {m['peak_gib']:.2f} GiB above the state"
         for k, m in runs.items()))
@@ -2831,6 +2896,64 @@ def phase_parallel() -> dict:
     _gloo_transport()
     log(f"[parallel] {_card()}; phase 8d took {time.time() - t0:.1f} s")
     return {f"parallel {k}": v for k, v in counts.items()}
+
+
+# ---------------------------------------------------------- 8e. the dry run
+#: |predicted - measured| / measured of the peak above the state (PERF.md's
+#: prediction, written before the first chip run: the caching allocator
+#: rounds each block to 512 B, as the account does)
+DRYRUN_PEAK_BOUND = 0.03
+
+
+def phase_dryrun() -> None:
+    """launch/dryrun.py's prediction of the two card steps that phases 8c
+    and 8d ran (CARD_STEPS), traced once each on the meta device: kernel
+    calls equal to the card's launches per step, FLOPs equal to the card
+    step's count, the peak above the state within DRYRUN_PEAK_BOUND of the
+    card's, nothing allocated on the card; the peak's breakdown printed."""
+    t0 = time.time()
+    cfg = _gpt3_1b().replace(use_kernel=True)
+    shape = ShapeSpec("card", TRAIN_SEQ, TRAIN_BATCH, "train")
+    runs = {"gspmd": ("make_train_step (phase 8c)",
+                      lambda: dryrun.trace_gspmd(cfg, shape, Mesh(data=1, model=1))),
+            "pipe": (f"contiguous M {PIPE_SLICES} on pipe {PIPE_RANKS}, launch.train.train_step "
+                     f"(phase 8d)",
+                     lambda: dryrun.trace_terapipe(cfg, shape, PAR_BASE,
+                                                   TeraPipeConfig(n_token_slices=PIPE_SLICES),
+                                                   per_device=False))}
+    gib = lambda x: x / 2**30
+    for key, (label, trace) in runs.items():
+        card = CARD_STEPS[key]
+        before = torch.cuda.memory_allocated()
+        t1 = time.time()
+        pred = trace()
+        trace_s = time.time() - t1
+        allocated = torch.cuda.memory_allocated() - before
+        calls = {k: pred["kernel_calls"][k] * card["steps"] for k in COUNTERS}
+        rel = (pred["peak_above_state"] - card["peak_bytes"]) / card["peak_bytes"]
+        log(f"[dryrun] {_card()}; {cfg.name} FULL, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+            f"{label}: traced on meta in {trace_s:.2f} s ({allocated} B allocated on the card, "
+            f"largest tensor off meta {pred['largest_off_meta_bytes']} B); peak above the "
+            f"state predicted {pred['peak_above_state']:.0f} B ({gib(pred['peak_above_state']):.4f}"
+            f" GiB), the card's {card['peak_bytes']} B ({gib(card['peak_bytes']):.4f} GiB): "
+            f"{rel:+.5%} (bound {DRYRUN_PEAK_BOUND:.0%}); state {gib(pred['state_bytes']):.4f} "
+            f"GiB; FLOPs predicted {pred['flops']:.0f}, the card's {card['flops']} "
+            f"(FlopCounterMode {card['matmul_flops']} + kernels {card['kernel_flops']}); kernel "
+            f"calls {pred['kernel_calls']} per step x {card['steps']}, launches {card['counts']}")
+        log(f"[dryrun] {label}: the peak above the state by category: " + ", ".join(
+            f"{k} {gib(v):.4f} GiB" for k, v in pred["by_category"].items())
+            + f"; bytes accessed {pred['bytes_accessed']:.4g}")
+        if allocated or pred["largest_off_meta_bytes"]:
+            raise AssertionError(f"dryrun {label}: the trace allocated off the meta device")
+        if calls != card["counts"]:
+            raise AssertionError(f"dryrun {label}: kernel calls {calls} != launches "
+                                 f"{card['counts']}")
+        if int(pred["flops"]) != card["flops"]:
+            raise AssertionError(f"dryrun {label}: FLOPs {pred['flops']:.0f} != the card's "
+                                 f"{card['flops']}")
+        if abs(rel) > DRYRUN_PEAK_BOUND:
+            raise AssertionError(f"dryrun {label}: peak {rel:+.3%} off the card's")
+    log(f"[dryrun] {_card()}; phase 8e took {time.time() - t0:.1f} s")
 
 
 # --------------------------------------------------------------- 9. times
@@ -3077,6 +3200,8 @@ def main() -> int:
     done("layout")
     paths.update(phase_parallel())
     done("parallel")
+    phase_dryrun()
+    done("dryrun")
     launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in COUNTERS}
     log(f"[launches] main paths: {paths}")
     rows = phase_times(errs, launches)

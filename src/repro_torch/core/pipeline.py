@@ -337,6 +337,7 @@ class _Plan:
         else:
             self.cfg_local, self.main_local = cfg, self.main
         self.block_fn = self.main_local.sliced_dyn
+        self.running: Optional[int] = None           # the rank whose unit runs (_run_ticks)
 
     def local_batch(self, batch, r: int):
         """Data rank ``r``'s rows of every leaf of ``batch``."""
@@ -468,6 +469,7 @@ def _run_ticks(p: _Plan, run_fwd: Callable, run_bwd: Optional[Callable] = None) 
             if t >= tab.shape[0] or tab[t, k, 0] < 0:
                 continue                              # idle: nothing runs
             i, v, kind = (int(a) for a in tab[t, k])
+            p.running = k                             # the dry run's live-bytes account reads it
             if kind == KIND_FWD:
                 x_in = None
                 if (k, v) != (0, 0):                  # rank 0 chunk 0 admits new work
@@ -482,6 +484,7 @@ def _run_ticks(p: _Plan, run_fwd: Callable, run_bwd: Optional[Callable] = None) 
                 g = gbuf[j][(t - lag) % hg]
                 assert g is not None, (t, k, v, i, kind)
             g_sent[j] = run_bwd(k, v, i, kind, g)
+        p.running = None
         x_recv = p.ring.shift(x_sent)
         if comm.rev_ring:
             g_recv = p.ring.shift(g_sent, step=-1)

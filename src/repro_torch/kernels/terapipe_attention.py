@@ -31,29 +31,37 @@ def _lib():
 
 def check_attention_inputs(q, k, v, what: str) -> None:
     """Shared argument checks of the attention kernels: CUDA tensors on one
-    device, bf16 or f32, (B, S, H, hd) with dense head and feature dims,
-    16-byte aligned base pointers and rows (batch and sequence strides that
-    are multiples of 8 elements in bf16, whose tiles are copied in 16-byte
-    ``cp.async`` chunks, and of 4 in f32), a supported head dim and
-    ``Hq % Hkv == 0``."""
+    device, 16-byte aligned base pointers, and :func:`check_attention_shapes`."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"{what}: {name} is on {t.device}; the kernel takes "
                              f"CUDA tensors (CPU tensors use the plain version)")
+        if t.device != q.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, q on {q.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned")
+    check_attention_shapes(q, k, v, what)
+
+
+def check_attention_shapes(q, k, v, what: str) -> None:
+    """What the kernels take of shapes, dtypes and strides, on any device
+    (the meta routes of :mod:`repro_torch.kernels.ops` check the same): bf16
+    or f32, (B, S, H, hd) with dense head and feature dims, rows 16 bytes
+    apart (batch and sequence strides that are multiples of 8 elements in
+    bf16, whose tiles are copied in 16-byte ``cp.async`` chunks, and of 4
+    in f32), a supported head dim and ``Hq % Hkv == 0``."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != q.dtype or t.dtype not in DTYPES:
             raise ValueError(f"{what}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
                              f"need one of {DTYPES}")
-        if t.dim() != 4 or t.device != q.device:
-            raise ValueError(f"{what}: {name} must be 4-d on {q.device}, got "
-                             f"{tuple(t.shape)} on {t.device}")
+        if t.dim() != 4:
+            raise ValueError(f"{what}: {name} must be 4-d, got {tuple(t.shape)}")
         hd, row = t.shape[3], 16 // t.element_size()
         if t.stride(3) != 1 or t.stride(2) != hd or t.stride(1) % row or t.stride(0) % row:
             raise ValueError(f"{what}: {name} strides {t.stride()} — head and "
                              f"feature dims must be dense, batch and sequence "
                              f"strides multiples of {row} elements ({t.dtype}: "
                              f"16-byte rows)")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: {name} is not 16-byte aligned")
     if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
         raise ValueError(f"{what}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")

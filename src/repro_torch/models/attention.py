@@ -35,7 +35,11 @@ Under tensor parallelism (``cfg.tp_axis`` a group), ``full`` and
 ``sliced_dyn`` take the hosted ranks' lists of shards and caches, run each
 rank's heads and sum the output projection's partials (``_over_ranks``);
 ``sliced`` and ``decode`` serve, and the reference serves without it, so
-they refuse it.
+they refuse a group that hosts several ranks (one cache each would be
+needed); under a group that hosts one rank (one process per rank, as
+``distributed.transport.DistGroup``, or the dry run's recording group) they
+run that rank's heads on its cache and sum the output projection's partial
+over the axis.
 """
 from __future__ import annotations
 
@@ -196,12 +200,16 @@ def _over_ranks(p, cfg: ModelConfig, x: torch.Tensor, cache, heads):
 
 def _serving_params(p, cfg: ModelConfig):
     """A serving mode's one parameter dict (``p``, or the one rank's of a
-    block's list); tensor parallelism raises, as the reference serves
-    without it."""
-    if cfg.tp_axis is not None:
+    block's list) and the group its output projection's partial is summed
+    over: without tensor parallelism the one-rank group; a group hosting
+    several ranks raises, as the reference serves without tensor
+    parallelism."""
+    group = tp_group(cfg.tp_axis)
+    if len(group.ranks) != 1:
         raise ValueError("the serving attention modes (attn_sliced, attn_decode) take no "
-                         "tensor parallelism (cfg.tp_axis), as the reference's serving has none")
-    return shards(p)[0]
+                         "tensor parallelism over a group that hosts several ranks "
+                         "(cfg.tp_axis), as the reference's serving has none")
+    return shards(p)[0], group
 
 
 def _write_rows(cache: torch.Tensor, x: torch.Tensor, start: int) -> torch.Tensor:
@@ -250,7 +258,7 @@ def attn_sliced(p, cfg: ModelConfig, x_slice: torch.Tensor, kv_cache, ctx_len: i
     kv_cache: (k, v) each (B, L_max, kv_heads, hd) — prefix written in [0, ctx_len)
     Returns (out_slice, kv_cache) with the slice's K/V written at ctx_len.
     """
-    p = _serving_params(p, cfg)
+    p, group = _serving_params(p, cfg)
     b, l, _ = x_slice.shape
     positions = (torch.arange(l, device=x_slice.device) + ctx_len)[None, :]
     q, k, v = _project_qkv(p, cfg, x_slice, positions, rope=cfg.rope_theta > 0)
@@ -269,7 +277,7 @@ def attn_sliced(p, cfg: ModelConfig, x_slice: torch.Tensor, kv_cache, ctx_len: i
         mask = (local_causal_mask(l, ctx_len + l, window, q_offset=ctx_len, device=q.device)
                 if window else causal_mask(l, ctx_len + l, q_offset=ctx_len, device=q.device))
         out = attention_scores_gqa(q, k_all, v_all, mask=mask[None])
-    return _out_proj(p, cfg, out, b, l, x_slice.dtype), (ck, cv)
+    return group.all_reduce([_out_proj(p, cfg, out, b, l, x_slice.dtype)])[0], (ck, cv)
 
 
 def attn_sliced_dyn(p, cfg: ModelConfig, x_slice: torch.Tensor, kv_cache, ctx,
@@ -324,13 +332,15 @@ def attn_decode(p, cfg: ModelConfig, x_tok: torch.Tensor, kv_cache, pos,
     attends over the slots that hold one of the last ``window`` positions,
     whatever ``L_max`` is.
     """
-    p = _serving_params(p, cfg)
+    p, group = _serving_params(p, cfg)
     b = x_tok.shape[0]
-    pos_t = torch.as_tensor(pos, device=x_tok.device)
-    if pos_t.dim() > 0:
-        return _attn_decode_batched(p, cfg, x_tok, kv_cache, pos_t.long(),
-                                    window=window, ring=ring)
-    pos = int(pos_t)
+    if not isinstance(pos, int):     # a host int stays one (no .item(): meta decodes)
+        pos_t = torch.as_tensor(pos, device=x_tok.device)
+        if pos_t.dim() > 0:
+            y, kv_cache = _attn_decode_batched(p, cfg, x_tok, kv_cache, pos_t.long(),
+                                               window=window, ring=ring)
+            return group.all_reduce([y])[0], kv_cache
+        pos = int(pos_t)
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x_tok.device)
     q, k, v = _project_qkv(p, cfg, x_tok, positions, rope=cfg.rope_theta > 0)
     ck, cv = kv_cache
@@ -355,7 +365,7 @@ def attn_decode(p, cfg: ModelConfig, x_tok: torch.Tensor, kv_cache, pos,
             valid &= kp > pos - window
         out = attention_scores_gqa(q, ck.to(q.dtype), cv.to(q.dtype),
                                    mask=valid[None])              # (1, 1, Lmax)
-    return _out_proj(p, cfg, out, b, 1, x_tok.dtype), (ck, cv)
+    return group.all_reduce([_out_proj(p, cfg, out, b, 1, x_tok.dtype)])[0], (ck, cv)
 
 
 def _attn_decode_batched(p, cfg: ModelConfig, x_tok: torch.Tensor, kv_cache,

@@ -16,8 +16,9 @@ the hosted ranks' shards, in ``ranks`` order; the activation between the
 blocks is replicated, one tensor.  A reducing block runs its partial on
 each hosted rank's shard and sums them with ``all_reduce``; without tensor
 parallelism it runs the same code on one rank (a dict ``p``, the group a
-one-rank ``LocalGroup``).  The serving modes take no tensor parallelism,
-as the reference's serving has none.
+one-rank ``LocalGroup``).  The serving modes take no group that hosts
+several ranks, as the reference's serving has no tensor parallelism; a
+group that hosts one rank serves that rank's heads.
 """
 from __future__ import annotations
 

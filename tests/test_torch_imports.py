@@ -60,7 +60,8 @@ def test_port_imports_nothing_of_jax():
     assert {"moe.py", "qwen3_moe.py", "deepseek_moe.py", "ssm.py", "rglru.py", "mamba2.py",
             "recurrentgemma.py", "phi3_mini.py", "phi4_mini.py", "stablelm_12b.py",
             "phi3_vision.py", "whisper_medium.py", "steps.py",
-            "collectives.py"} <= {p.name for p in PORT_FILES}
+            "collectives.py", "dryrun.py", "hlo_analysis.py",
+            "instruments.py"} <= {p.name for p in PORT_FILES}
     assert "serve_decode_torch.py" in {p.name for p in PORT_EXAMPLES}
     bad = []
     for path in PORT_FILES + PORT_EXAMPLES + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]:
@@ -148,6 +149,19 @@ def test_meta_device_only_when_named():
             abstract_init(build_model(cfg))
     params, _ = abstract_init(build_model(cfg, device="cpu"))
     assert all(t.is_meta for t in params.values() if isinstance(t, torch.Tensor))
+
+
+def test_dryrun_runs_on_meta_without_a_gpu(tmp_path):
+    """The dry run's device is meta by nature, not a fallback: it needs no
+    GPU, and a traced cell allocates nothing off meta."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell("qwen3-0.6b", "train_4k", smoke=True, out_dir=str(tmp_path),
+                          shape=dryrun.ShapeSpec("x", 16, 2, "train"),
+                          mesh=dryrun.Mesh(data=1, model=1), use_kernel=True)
+    assert rec["ok"] and rec["largest_off_meta_bytes"] == 0
+    assert rec["kernel_calls"]["terapipe_attention_fwd"] > 0
+    assert dryrun.main(["--arch", "qwen3-0.6b", "--shape", "long_500k",
+                        "--out-dir", str(tmp_path)]) == 0
 
 
 def test_cpu_tensors_take_the_plain_path_without_launches():
