@@ -182,10 +182,18 @@ result line):
                model in f32: the routing at tp 2 changes a token's choices
                only at a near-tie of its pipe-2 gates (top-k gap at most
                twice its gates' change) and keep bits only in groups with
-               such a change; two CPU processes under gloo
-               running gpt3 SMOKE f32 on pipe 2 (DistRing, 1f1b), tp 2 and
-               data 2 (DistGroup), bit-equal in loss and every gradient to
-               the in-process LocalRing/LocalGroup run;
+               such a change; CPU processes under gloo, one per rank
+               (GLOO_CASES: SMOKE f32, two processes, and four for pipe 2 x
+               tp 2, spawned at once): gpt3 on pipe 2 (DistRing) under
+               1f1b, contiguous, gpipe D 2 and interleaved V 2, tp 2 and
+               data 2 (DistGroup), pipe 2 x tp 2, and recurrentgemma on
+               pipe 2 (its post-group tail on the last rank), each rank's
+               loss and every gradient bit-equal to the in-process
+               LocalRing/LocalGroup run (the forward-only schedules across
+               processes: within 2e-6 of each leaf's largest magnitude
+               where not, those leaves named); then the launcher under
+               torchrun on four CPU processes (gloo, Mesh(data=1, pipe=4))
+               beside one process, the printed losses within 1e-6;
  8e. dryrun  — launch/dryrun.py's prediction on the meta device, no step on
                the card: gpt3-1b's make_train_step at batch 4 x seq 2048
                with kernels (as phase 8c ran it) and the contiguous M 8
@@ -197,6 +205,16 @@ result line):
                above the state within DRYRUN_PEAK_BOUND of the card's
                max_memory_allocated, nothing allocated on the card; the
                peak's breakdown by category printed;
+ 8f. rank per process — gpt3-1b at full width, batch 4 x seq 2048,
+               kernels, Mesh(pipe=4), with one pipe rank per thread
+               (distributed.transport.ThreadRing: four threads on the one
+               card, the path of one rank per process: the forward-only
+               schedules' transposed tick table) against the in-process
+               LocalRing run, one value-and-grad each, under contiguous M 8
+               and gpipe D 2: every rank's loss and gradient leaves
+               bit-equal (or within 2e-6 of each leaf's largest magnitude,
+               the leaves named), launches exactly 384 / 192 / 192 and 96 /
+               48 / 48 in each run, ms and the peak above the state of each;
   9. times   — each kernel at a main-path shape (CUDA events, median of 30
                after warm-up, L2 flushed before each launch) beside its
                bound, its plain version and one PyTorch library call; the
@@ -224,12 +242,14 @@ import dataclasses
 import importlib.util
 import json
 import math
+import os
 import re
 import resource
 import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -2645,11 +2665,33 @@ PAR_PARITY_ROWS = 2                       # one row per data rank
 PAR_STEPS = 3
 MOE_PAR_MESH = Mesh(pipe=2, tp=2)         # deepseek: 32 of 64 routed experts per rank
 MOE_PAR_BASE = Mesh(pipe=2)
-# the two-process gloo check: gpt3 SMOKE, f32, batch 4 x seq 32, M 4
-GLOO_CASES = (("pipe 2, DistRing, 1f1b", Mesh(pipe=2), "1f1b"),
-              ("tp 2, DistGroup, contiguous", Mesh(tp=2), "contiguous"),
-              ("data 2, DistGroup, contiguous", Mesh(data=2), "contiguous"))
+# the gloo check, one CPU process per rank: SMOKE configs, f32, batch 4 x
+# seq 32, M 4 unless the case says otherwise.  Per case: label, arch, mesh,
+# TeraPipeConfig fields, and whether every leaf must be bit-equal to the
+# in-process run (else within GLOO_REL of its largest magnitude, the
+# leaves that are not bit-equal named in the log)
+GLOO_CASES = (
+    ("pipe 2, DistRing, 1f1b", "gpt3-1b", Mesh(pipe=2), {"schedule": "1f1b"}, True),
+    ("tp 2, DistGroup, contiguous", "gpt3-1b", Mesh(tp=2), {}, True),
+    ("data 2, DistGroup, contiguous", "gpt3-1b", Mesh(data=2), {}, True),
+    ("pipe 2, DistRing, contiguous", "gpt3-1b", Mesh(pipe=2), {}, False),
+    ("pipe 2, DistRing, gpipe D 2", "gpt3-1b", Mesh(pipe=2),
+     {"n_token_slices": 1, "n_microbatches": 2}, False),
+    ("pipe 2, DistRing, interleaved V 2", "gpt3-1b", Mesh(pipe=2),
+     {"schedule": "interleaved", "virtual_stages": 2}, False),
+    ("recurrentgemma pipe 2, DistRing, contiguous (post-group tail)", "recurrentgemma-9b",
+     Mesh(pipe=2), {}, False),
+    ("pipe 2 x tp 2, DistRing + DistGroup, contiguous", "gpt3-1b", Mesh(pipe=2, tp=2), {},
+     False),
+)
 GLOO_BATCH, GLOO_SEQ, GLOO_THREADS = 4, 32, 2
+GLOO_REL = 2e-6
+# the launcher across four CPU processes against one process
+LAUNCH_ARGS = ["--arch", "gpt3-1b", "--smoke", "--device", "cpu", "--mode", "terapipe",
+               "--token-slices", "4", "--steps", "3", "--batch", "4", "--seq", "64",
+               "--log-every", "1"]
+LAUNCH_PROCS = 4
+LAUNCH_BOUND = 1e-6
 
 
 def _mesh_steps(cfg, tcfg: TeraPipeConfig, mesh: Mesh, label: str,
@@ -2804,26 +2846,29 @@ def _moe_routing_f32(cfg, tcfg: TeraPipeConfig) -> None:
     del model, params, calls, base, par
 
 
-def _gloo_setup(schedule: str):
-    """gpt3 SMOKE in f32 on the CPU, its seeded parameters, a batch and the
-    pipelined step's config, the same in every process."""
+def _gloo_setup(arch: str, tkw: dict):
+    """``arch`` SMOKE in f32 on the CPU, its seeded parameters, a batch and
+    the pipelined step's config, the same in every process."""
     torch.set_num_threads(GLOO_THREADS)
-    cfg = get_config("gpt3-1b", smoke=True).replace(dtype=torch.float32)
+    cfg = get_config(arch, smoke=True).replace(dtype=torch.float32)
     model = build_model(cfg, "cpu")
     params = tree_map(lambda p: p.requires_grad_(True), model.init(seed=0))
     toks = train_launch.make_data(cfg, GLOO_BATCH, GLOO_SEQ, 0).batch_at(0)
     batch = {k: torch.from_numpy(a) for k, a in toks.items()}
-    tcfg = TeraPipeConfig(n_token_slices=4, cache_dtype=torch.float32, schedule=schedule)
+    tcfg = TeraPipeConfig(cache_dtype=torch.float32, **{"n_token_slices": 4, **tkw})
     return model, params, batch, tcfg
 
 
-def _gloo_worker(rank: int, address: str, out_dir: str) -> None:
-    """One of the two processes: each case's loss and gradients through
-    the transport's groups for its mesh, saved for the parent."""
-    transport.init_process_group(address, rank, 2, "gloo")
+def _gloo_worker(rank: int, address: str, world: int, out_dir: str) -> None:
+    """One of ``world`` processes: the loss and gradients of each case whose
+    mesh has ``world`` ranks, through the transport's groups for its mesh,
+    saved for the parent."""
+    transport.init_process_group(address, rank, world, "gloo")
     try:
-        for i, (_, mesh, schedule) in enumerate(GLOO_CASES):
-            model, params, batch, tcfg = _gloo_setup(schedule)
+        for i, (_, arch, mesh, tkw, _) in enumerate(GLOO_CASES):
+            if mesh.size != world:
+                continue
+            model, params, batch, tcfg = _gloo_setup(arch, tkw)
             vg = make_terapipe_value_and_grad(model, tcfg, GLOO_SEQ, GLOO_BATCH, mesh,
                                               transport.mesh_groups(mesh))
             torch.save(vg(params, batch), Path(out_dir) / f"rank{rank}_case{i}.pt")
@@ -2831,45 +2876,133 @@ def _gloo_worker(rank: int, address: str, out_dir: str) -> None:
         torch.distributed.destroy_process_group()
 
 
-def _gloo_transport() -> None:
-    """Two CPU processes under gloo (torch.multiprocessing, spawned; a free
-    localhost port) against the in-process run of each GLOO_CASES mesh:
-    the loss and every gradient leaf bit-equal on both ranks."""
+def _free_port() -> int:
     import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _held_to(got_loss, got: dict, loss, want: dict, exact: bool) -> tuple:
+    """``(verdict, worst, not bit-equal leaves)`` of one rank's loss and
+    gradients against the in-process run's: bit-equal, or (unless
+    ``exact``) within GLOO_REL of each leaf's largest magnitude; raises
+    otherwise."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"gradient leaves differ: {sorted(got.keys() ^ want.keys())}")
+    differ, worst = [], 0.0
+    for path, a in got.items():
+        w = want[path]
+        if torch.equal(a, w):
+            continue
+        differ.append(path)
+        rel = float((a - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst = max(worst, rel)
+    loss_rel = abs(float(got_loss) - float(loss)) / abs(float(loss))
+    if not differ and torch.equal(got_loss, loss):
+        return "bit-equal", 0.0, differ
+    if exact or worst > GLOO_REL or loss_rel > GLOO_REL:
+        raise AssertionError(f"{len(differ)} leaves differ (worst {worst:.3g} of the leaf's "
+                             f"largest magnitude), loss relative {loss_rel:.3g}: {differ[:8]}")
+    return f"within {GLOO_REL:g} of each leaf's largest magnitude", max(worst, loss_rel), differ
+
+
+def _gloo_transport() -> None:
+    """One CPU process per rank under gloo (torch.multiprocessing, spawned;
+    a free localhost port): two processes for the cases of two ranks and,
+    at the same time, four for those of four, each against the in-process
+    run of its GLOO_CASES mesh; then the launcher under torchrun
+    (_launcher_processes)."""
     import torch.multiprocessing as mp
     out_dir = ROOT / "build" / "gloo_check"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
     t0 = time.time()
-    mp.start_processes(_gloo_worker, args=(f"tcp://localhost:{port}", str(out_dir)), nprocs=2,
-                       start_method="spawn", join=True)
-    spawned = time.time() - t0
+    # every world's processes at once, each world on a port of its own
+    running = {world: mp.start_processes(
+        _gloo_worker, args=(f"tcp://localhost:{_free_port()}", world, str(out_dir)),
+        nprocs=world, start_method="spawn", join=False)
+        for world in sorted({mesh.size for _, _, mesh, _, _ in GLOO_CASES})}
+    spawned = {}
+    for world, ctx in running.items():
+        while not ctx.join():
+            pass
+        spawned[world] = time.time() - t0
     threads = torch.get_num_threads()
     try:
-        for i, (label, mesh, schedule) in enumerate(GLOO_CASES):
-            model, params, batch, tcfg = _gloo_setup(schedule)
+        for i, (label, arch, mesh, tkw, exact) in enumerate(GLOO_CASES):
+            model, params, batch, tcfg = _gloo_setup(arch, tkw)
             loss, grads = make_terapipe_value_and_grad(model, tcfg, GLOO_SEQ, GLOO_BATCH,
                                                        mesh)(params, batch)
-            want = list(tree_leaves(grads))
-            for rank in range(2):
+            want = dict(tree_items(grads))
+            for rank in range(mesh.size):
                 got_loss, got = torch.load(out_dir / f"rank{rank}_case{i}.pt")
-                got = list(tree_leaves(got))
-                equal = torch.equal(got_loss, loss) and len(got) == len(want) and all(
-                    torch.equal(a, b) for a, b in zip(got, want))
-                worst = max(float((a - b).abs().max()) for a, b in zip(got, want))
-                log(f"[parallel] gloo {label}, rank {rank} of 2: loss {got_loss.item():.7f} "
-                    f"(in process {loss.item():.7f}), {len(got)} gradient leaves, "
-                    f"{'bit-equal' if equal else 'NOT bit-equal'} (max abs difference {worst:.3g})")
-                if not equal:
+                try:
+                    verdict, worst, differ = _held_to(got_loss, dict(tree_items(got)), loss,
+                                                      want, exact)
+                except AssertionError as e:
                     raise AssertionError(f"parallel: gloo {label} rank {rank} differs from the "
-                                         f"in-process run")
+                                         f"in-process run: {e}") from None
+                log(f"[parallel] gloo {label}, rank {rank} of {mesh.size}: loss "
+                    f"{got_loss.item():.7f} (in process {loss.item():.7f}), {len(want)} "
+                    f"gradient leaves, {verdict}"
+                    + (f" (worst {worst:.3g}; not bit-equal: {', '.join(differ)})"
+                       if differ else ""))
     finally:
         torch.set_num_threads(threads)
-    log(f"[parallel] gloo transport: two processes, {len(GLOO_CASES)} meshes, "
-        f"{spawned:.1f} s from spawn to join, {time.time() - t0:.1f} s with the in-process runs")
+    log(f"[parallel] gloo transport: {len(GLOO_CASES)} meshes, "
+        + ", ".join(f"{w} processes joined {sec:.1f} s after the spawn" for w, sec in
+                    spawned.items())
+        + f"; {time.time() - t0:.1f} s with the in-process runs")
+    _launcher_processes()
+
+
+def _printed_losses(text: str) -> list:
+    return [float(x) for x in re.findall(r"^step +\d+ loss (\S+)", text, flags=re.M)]
+
+
+def _launcher_processes() -> None:
+    """``python -m torch.distributed.run --standalone --nproc-per-node 4 -m
+    repro_torch.launch.train`` LAUNCH_ARGS (gloo, Mesh(data=1, pipe=4), one
+    rank per process) against the same launcher in one process (4 virtual
+    ranks): every printed loss within LAUNCH_BOUND, rank 0 the only one
+    that prints, and the launcher's own check that every rank ends with
+    the same parameters."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": str(GLOO_THREADS)}
+    t0 = time.time()
+    procs = {label: subprocess.Popen(cmd + LAUNCH_ARGS, cwd=ROOT, env=env, text=True,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for label, cmd in (
+                 ("one process", [sys.executable, "-m", "repro_torch.launch.train"]),
+                 (f"torchrun {LAUNCH_PROCS} processes",
+                  [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc-per-node", str(LAUNCH_PROCS), "-m", "repro_torch.launch.train"]))}
+    runs = {}
+    try:
+        for label, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"launcher {label} exited {proc.returncode}: {err[-3000:]}")
+            runs[label] = (out, time.time() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    (one, one_s), (many, many_s) = runs.values()
+    want, got = _printed_losses(one), _printed_losses(many)
+    done = [line for line in many.splitlines() if line.startswith("done:")]
+    worst = max((abs(a - b) for a, b in zip(got, want)), default=float("inf"))
+    log(f"[parallel] launcher: torchrun --nproc-per-node {LAUNCH_PROCS} -m repro_torch.launch.train "
+        f"{' '.join(LAUNCH_ARGS)}: losses {got} (done {many_s:.1f} s after the start), one "
+        f"process at the same time {want} ({one_s:.1f} s), largest difference {worst:.3g} (bound {LAUNCH_BOUND:g}); "
+        f"{done[0] if done else 'no done line'}")
+    if len(got) != 3 or len(want) != 3 or worst > LAUNCH_BOUND:
+        raise AssertionError("parallel: the launcher across processes printed other losses "
+                             "than in one process")
+    if len(done) != 1 or f"{LAUNCH_PROCS} processes on Mesh(data=1, pipe={LAUNCH_PROCS})" \
+            not in done[0]:
+        raise AssertionError(f"parallel: the torchrun launcher's done lines: {done}")
 
 
 def phase_parallel() -> dict:
@@ -2954,6 +3087,101 @@ def phase_dryrun() -> None:
         if abs(rel) > DRYRUN_PEAK_BOUND:
             raise AssertionError(f"dryrun {label}: peak {rel:+.3%} off the card's")
     log(f"[dryrun] {_card()}; phase 8e took {time.time() - t0:.1f} s")
+
+
+# ------------------------------------------- 8f. one pipe rank per thread
+RPP_MESH = Mesh(pipe=PIPE_RANKS)
+#: gpt3-1b's contiguous M 8 and gpipe D 2 at batch RPP_BATCH x TRAIN_SEQ
+RPP_CASES = (("contiguous M 8", {"n_token_slices": PIPE_SLICES}, PIPE_SLICES),
+             ("gpipe D 2", {"n_token_slices": 1, "n_microbatches": 2}, 2))
+RPP_BATCH = TRAIN_BATCH
+RPP_REL = 2e-6
+
+
+def _launch_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def _rank_per_thread(cfg, label: str, tkw: dict, work_items: int) -> dict:
+    """One value-and-grad of ``cfg`` at RPP_BATCH x TRAIN_SEQ on RPP_MESH:
+    in process (LocalRing: autograd over the tick loop), then with one pipe
+    rank per thread (transport.ThreadRing, four threads on the one card:
+    the transposed tick table, the path of one rank per process).  Every
+    rank's loss and gradients against the in-process run (bit-equal, or
+    within RPP_REL of each leaf's largest magnitude, the leaves named),
+    the launches of each run exactly _launches_per_step's, the peak above
+    the state of each.  Returns the ThreadRing run's launches."""
+    model = build_model(cfg.replace(use_kernel=True))
+    tcfg = TeraPipeConfig(**tkw)
+    params = tree_map(lambda p: p.requires_grad_(True), model.init(seed=0))
+    toks = train_launch.make_data(cfg, RPP_BATCH, TRAIN_SEQ, 0).batch_at(0)
+    batch = {k: torch.from_numpy(a).cuda() for k, a in toks.items()}
+    want_counts = {k: _launches_per_step(cfg, work_items).get(k, 0) for k in COUNTERS}
+    runs = {}
+
+    def measured(run):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        t0 = time.time()
+        out = run()
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        counts = _launch_counts()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        return out, {"ms": sec * 1e3, "peak_gib": peak, "counts": counts}
+
+    (loss, grads), runs["in process"] = measured(lambda: make_terapipe_value_and_grad(
+        model, tcfg, TRAIN_SEQ, RPP_BATCH, RPP_MESH)(params, batch))
+    want = dict(tree_items(grads))
+
+    def rank_run(rank):
+        got_loss, got = make_terapipe_value_and_grad(model, tcfg, TRAIN_SEQ, RPP_BATCH, RPP_MESH,
+                                                     {"pipe": rank})(params, batch)
+        got = dict(tree_items(got))
+        # one rank's verdict at a time: the comparison's temporaries are
+        # one leaf's
+        with _RPP_LOCK:
+            return _held_to(got_loss, got, loss, want, exact=False), float(got_loss)
+
+    ring = transport.ThreadRing(PIPE_RANKS)
+    verdicts, runs["ThreadRing"] = measured(lambda: ring.run(rank_run))
+    state = sum(a.numel() * a.element_size() for a in tree_leaves(params)) / 2**30
+    for k, ((verdict, worst, differ), got_loss) in enumerate(verdicts):
+        log(f"[rank-per-process] {label}, rank {k} of {PIPE_RANKS} (thread): loss "
+            f"{got_loss:.7f} (in process {loss.item():.7f}), {len(want)} gradient leaves, "
+            f"{verdict}" + (f" (worst {worst:.3g}; not bit-equal: {', '.join(differ)})"
+                            if differ else ""))
+    log(f"[rank-per-process] {_card()}; {cfg.name} FULL width, {cfg.n_layers} layers, "
+        f"{RPP_MESH}, {label}, batch {RPP_BATCH} x seq {TRAIN_SEQ}, bf16, kernels, one "
+        f"value-and-grad: " + "; ".join(
+            f"{k} {r['ms']:.1f} ms, peak {r['peak_gib']:.2f} GiB above the state's "
+            f"{state:.2f} GiB of parameters, launches {r['counts']}" for k, r in runs.items())
+        + f" (want {want_counts} each)")
+    for k, r in runs.items():
+        if {n: r["counts"][n] for n in want_counts} != want_counts:
+            raise AssertionError(f"rank-per-process {label} {k}: launches {r['counts']} != "
+                                 f"{want_counts}")
+    del model, params, grads, want
+    torch.cuda.empty_cache()
+    return runs["ThreadRing"]["counts"]
+
+
+_RPP_LOCK = threading.Lock()
+
+
+def phase_rank_per_process() -> dict:
+    """gpt3-1b at full width with one pipe rank per thread on the one card
+    (RPP_CASES), each against the in-process run."""
+    t0 = time.time()
+    cfg = _gpt3_1b()
+    torch.cuda.empty_cache()
+    counts = {f"rank-per-process {label}": _rank_per_thread(cfg, label, tkw, items)
+              for label, tkw, items in RPP_CASES}
+    log(f"[rank-per-process] {_card()}; phase 8f took {time.time() - t0:.1f} s")
+    return counts
 
 
 # --------------------------------------------------------------- 9. times
@@ -3202,6 +3430,8 @@ def main() -> int:
     done("parallel")
     phase_dryrun()
     done("dryrun")
+    paths.update(phase_rank_per_process())
+    done("rank per process")
     launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in COUNTERS}
     log(f"[launches] main paths: {paths}")
     rows = phase_times(errs, launches)

@@ -113,7 +113,7 @@ from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec, loca
 from repro_torch.launch.mesh import Mesh, data_axes
 from repro_torch.models import Model, build_model
 from repro_torch.models.attention import tp_local_kv_heads, tp_rank_attn
-from repro_torch.models.common import LocalGroup, ModelConfig, rms_norm
+from repro_torch.models.common import LocalGroup, ModelConfig, rms_norm, shards
 from repro_torch.models.lm import BlockGroup, _remat, _scan_full, _unstack, _xent_chunk
 from repro_torch.tree import tree_items, tree_leaves, tree_map, tree_unflatten
 
@@ -539,15 +539,138 @@ def _make_loss_from_plan(p: _Plan) -> Callable:
     return loss_fn
 
 
+def _requiring_grad(a):
+    """A leaf of its own that requires grad (floating tensors only)."""
+    return a.detach().requires_grad_() if a.is_floating_point() else a
+
+
+class _UnitGrads:
+    """One call's leaves and gradient sums for a tick loop that takes each
+    unit's gradients with a ``torch.autograd.grad`` of its own: the
+    explicit-backward schedules, and the forward-only ones on a ring that
+    hosts one rank per process.
+
+    * ``layers[k, v]``: the chunk's per-layer parameters (under tensor
+      parallelism the hosted tp ranks' blocks) as leaves of their own, so a
+      unit's gradients are its layers'; ``param_cots`` sums them in f32;
+    * ``final_ln``, ``w_head`` and the post-groups' parameters as leaves:
+      the head's and the post-groups' gradients, ``head_cots``;
+    * the prologue (embedding, pre-groups) run once under grad on leaves of
+      its own, ``x_det`` its output without a graph, ``d_emb`` the
+      cotangent the units at rank 0 chunk 0 write into it, by rows;
+    * ``loss`` the sum of the loss terms this process computed.
+
+    ``finish`` sums everything over the ring when it hosts one rank per
+    process (each rank contributes its units' shares and zeros), maps the
+    layers' sums back onto the stacked leaves (one autograd pass over the
+    views that cut them), runs the prologue's one autograd pass and returns
+    ``(loss, grads)`` in the parameters' structure and dtypes."""
+
+    def __init__(self, p: _Plan, params, batch):
+        self.p, self.params = p, params
+        self.tied = tied = p.cfg.tie_embeddings
+        main = params["groups"][p.main.name]
+        with torch.enable_grad():
+            # the stacked leaves and their per-chunk views (tp: the rank's
+            # blocks), through which ``finish`` maps the sums back
+            self.main = tree_map(_requiring_grad, main)
+            self.views = p.chunk_layers(self.main)
+        self.layers = {kv: tree_map(_requiring_grad, c) for kv, c in self.views.items()}
+        self.final_ln = params["final_ln"].detach().requires_grad_()
+        self.w_head = (params["embed"] if tied else params["lm_head"]).detach().requires_grad_()
+        self.post = {g.name: tree_map(_requiring_grad, params["groups"][g.name]) for g in p.post}
+        # the prologue's parameters as leaves of their own: the embedding
+        # and every pre-group
+        self.pro = tree_map(_requiring_grad, {
+            "embed": params["embed"], "groups": {g.name: params["groups"][g.name] for g in p.pre}})
+        with torch.enable_grad():
+            self.x_emb = p.prefix({**params, **self.pro}, batch)
+        self.x_det = self.x_emb.detach()
+
+        f32 = lambda a: torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+        hosted = [kv for kv in self.layers if kv[0] in p.ring.ranks]
+        self.d_layers = {kv: tree_map(f32, self.layers[kv]) for kv in hosted}
+        self.d_head = [f32(self.final_ln), f32(self.w_head)]
+        self.d_post = tree_map(f32, self.post)
+        self.d_emb = torch.zeros_like(self.x_det)
+        self.loss = torch.zeros((), dtype=torch.float32, device=self.x_det.device)
+
+    def head_params(self) -> dict:
+        """The head's leaves under the keys ``Model.head_loss`` reads."""
+        return {"final_ln": self.final_ln, ("embed" if self.tied else "lm_head"): self.w_head}
+
+    def param_cots(self, k: int, v: int, grads) -> None:
+        """Chunk ``(k, v)``'s layers' gradients (then, at the last global
+        stage of an explicit schedule, the head's) summed in f32."""
+        accs = list(tree_leaves(self.d_layers[k, v]))
+        for acc, g in zip(accs, grads[:len(accs)]):
+            if g is not None:
+                acc += g.float()
+        self.head_cots(grads[len(accs):])
+
+    def head_cots(self, grads) -> None:
+        """``final_ln``'s and ``w_head``'s gradients, summed in f32."""
+        for acc, g in zip(self.d_head, grads):
+            acc += g.float()
+
+    def finish(self):
+        p = self.p
+        d_main = self.main_grads()
+        if not _hosts_all(p.ring):                   # the other ranks' shares
+            reduce = lambda a: p.ring.all_reduce([a])[0]
+            self.loss, self.d_emb = reduce(self.loss), reduce(self.d_emb)
+            self.d_head = [reduce(a) for a in self.d_head]
+            for acc in tree_leaves(self.d_post):
+                acc.copy_(reduce(acc))
+            for acc in tree_leaves(d_main):
+                acc.copy_(reduce(acc))
+
+        d_pro = tree_unflatten(self.pro, torch.autograd.grad(
+            self.x_emb, list(tree_leaves(self.pro)), self.d_emb))
+        named = {"embed": d_pro["embed"].float(), "final_ln": self.d_head[0]}
+        if self.tied:
+            named["embed"] = named["embed"] + self.d_head[1]
+        else:
+            named["lm_head"] = self.d_head[1]
+        named["groups"] = {**d_pro["groups"], **self.d_post, p.main.name: d_main}
+        grads = {key: tree_map(lambda a, g: g.to(a.dtype), self.params[key], named[key])
+                 for key in self.params}
+        return self.loss, grads
+
+    def main_grads(self):
+        """The hosted chunks' sums as gradients of the stacked main-group
+        leaves, in f32: per leaf, one autograd pass over the views (unbind,
+        the tp blocks' slices) that cut the chunks' blocks from it, whose
+        sums are freed once it is built (one leaf's size above the sums at
+        a time); rows of chunks this process does not host are zero."""
+        leaves = list(tree_leaves(self.main))
+        views = [[] for _ in leaves]
+        sums = [[] for _ in leaves]
+        for kv, acc in self.d_layers.items():
+            for layer, layer_acc in zip(self.views[kv], acc):
+                for block, block_acc in zip(shards(layer), shards(layer_acc)):
+                    for j, (a, g) in enumerate(zip(tree_leaves(block), tree_leaves(block_acc))):
+                        views[j].append(a)
+                        sums[j].append(g)
+        self.d_layers = None
+        out = []
+        for j, a in enumerate(leaves):
+            g = torch.autograd.grad(views[j], a, sums[j])[0].float() if views[j] else \
+                torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+            views[j] = sums[j] = None
+            out.append(g)
+        return tree_unflatten(self.main, out)
+
+
 def _make_explicit_value_and_grad(p: _Plan) -> Callable:
     """``(params, batch) -> (loss, grads)`` of an explicit-backward schedule
     (reference ``_make_explicit_value_and_grad`` and the bwd branches of
     ``_make_pipeline_body``, ``:602-713``): one tick loop computes the loss
     and every gradient; the embedding's and the pre-groups' come from one
-    autograd pass over the prologue at the end.  One data rank's rows;
-    under a ring that hosts one rank per process, each process runs its
-    rank's units and the loss and gradients are summed over the ring's
-    ranks at the end (every rank but one contributes zeros to each)."""
+    autograd pass over the prologue at the end (:class:`_UnitGrads`).  One
+    data rank's rows; under a ring that hosts one rank per process, each
+    process runs its rank's units and the loss and gradients are summed
+    over the ring's ranks at the end."""
     if p.tp > 1:
         raise ValueError(f"schedule {p.sched!r} does not support tensor parallelism inside a "
                          f"stage (the per-slice head loss and the explicit gradient sums need "
@@ -561,32 +684,10 @@ def _make_explicit_value_and_grad(p: _Plan) -> Callable:
     tied = p.cfg.tie_embeddings
     spread = p.assign.residual_spread(p.DM)
     inv_total = 1.0 / float(p.B * p.L)
-    main_name = p.main.name
 
     def value_and_grad_fn(params, batch):
-        main = params["groups"][main_name]
-        # per (rank, chunk): its layers' parameters as autograd leaves of
-        # their own, so each unit's gradients are its layers'
-        with torch.no_grad():
-            layers = p.chunk_layers(main, lambda a: a.detach().requires_grad_())
-        final_ln = params["final_ln"].detach().requires_grad_()
-        w_head_leaf = (params["embed"] if tied else params["lm_head"]).detach().requires_grad_()
+        u = _UnitGrads(p, params, batch)
         labels = batch["labels"]
-        # the prologue's parameters as leaves of their own: the embedding
-        # and every pre-group
-        pro = {"embed": params["embed"],
-               "groups": {g.name: params["groups"][g.name] for g in p.pre}}
-        pro = tree_map(lambda a: a.detach().requires_grad_(), pro)
-        with torch.enable_grad():
-            x_emb = p.prefix({**params, **pro}, batch)
-        x_det = x_emb.detach()
-
-        f32 = lambda a: torch.zeros(a.shape, dtype=torch.float32, device=a.device)
-        d_main = tree_map(f32, main)
-        d_layers = p.chunk_layers(d_main)
-        d_head = [f32(final_ln), f32(w_head_leaf)]
-        d_emb = torch.zeros_like(x_det)
-        loss = torch.zeros((), dtype=torch.float32, device=x_det.device)
         caches: Dict[Tuple[int, int], list] = {}
         gcache: Dict[Tuple[int, int], list] = {}     # cache cotangent of the later slices
         store = _ResidualStore(p.K, spread)
@@ -595,11 +696,11 @@ def _make_explicit_value_and_grad(p: _Plan) -> Callable:
         def run_fwd(k, v, i, x_in):
             d, m = divmod(i, p.M)
             if x_in is None:
-                x_in = p.rows_of(x_det, d, m)
+                x_in = p.rows_of(u.x_det, d, m)
             if m == 0:
-                caches[k, v] = p.fresh_caches(len(layers[k, v]))
+                caches[k, v] = p.fresh_caches(len(u.layers[k, v]))
             with torch.no_grad():
-                x_out, _ = p.stage_apply(layers[k, v], x_in, caches[k, v], p.starts[m])
+                x_out, _ = p.stage_apply(u.layers[k, v], x_in, caches[k, v], p.starts[m])
             store.put(k, v, i, _Saved(x_in, caches[k, v], p.starts[m]))
             return x_out
 
@@ -615,10 +716,10 @@ def _make_explicit_value_and_grad(p: _Plan) -> Callable:
             c_in = [tuple(c[:, :ctx + l].detach().requires_grad_(m > 0) for c in kv)
                     for kv in saved.caches]
             with torch.enable_grad():
-                x_out, c_out = p.stage_apply(layers[k, v], x_in, c_in, ctx)
+                x_out, c_out = p.stage_apply(u.layers[k, v], x_in, c_in, ctx)
                 if (k, v) == p.last:             # rms_norm, head, f32 cross-entropy
-                    w_head = w_head_leaf.T if tied else w_head_leaf
-                    ls = _xent_chunk(rms_norm(x_out, final_ln), w_head,
+                    w_head = u.w_head.T if tied else u.w_head
+                    ls = _xent_chunk(rms_norm(x_out, u.final_ln), w_head,
                                      p.rows_of(labels, d, m)) * inv_total
                     outs, cots = [ls], [torch.ones((), device=ls.device)]
                 else:
@@ -628,9 +729,9 @@ def _make_explicit_value_and_grad(p: _Plan) -> Callable:
                     outs += list(new)
                     cots += [a[:, :ctx + l] for a in dc]
             inputs = [x_in] + ([c for kv in c_in for c in kv] if m > 0 else [])
-            params_in = list(tree_leaves(layers[k, v]))
+            params_in = list(tree_leaves(u.layers[k, v]))
             if (k, v) == p.last:
-                params_in += [final_ln, w_head_leaf]
+                params_in += [u.final_ln, u.w_head]
             return outs, cots, inputs, params_in
 
         def apply_input_cots(k, v, i, grads, outs):
@@ -638,38 +739,29 @@ def _make_explicit_value_and_grad(p: _Plan) -> Callable:
             chunk 0, into the embedding's), the cache cotangent for the
             microbatch's earlier slices, and the loss term."""
             d, m = divmod(i, p.M)
-            nonlocal loss
             if (k, v) == p.last:
-                loss = loss + outs[0].detach().float()
+                u.loss = u.loss + outs[0].detach().float()
             if m > 0:
                 gcache[k, v] = list(zip(grads[1::2], grads[2::2]))   # (dk, dv) per layer
             else:
                 gcache.pop((k, v), None)
             if (k, v) == (0, 0):
-                p.rows_of(d_emb, d, m).copy_(grads[0])
+                p.rows_of(u.d_emb, d, m).copy_(grads[0])
                 return None
             return grads[0]
-
-        def apply_param_cots(k, v, grads):
-            """Parameter gradients summed in f32 into the chunk's rows."""
-            n = len(grads) - (2 if (k, v) == p.last else 0)
-            for acc, g in zip(tree_leaves(d_layers[k, v]), grads[:n]):
-                acc += g.float()
-            for acc, g in zip(d_head, grads[n:]):
-                acc += g.float()
 
         def run_bwd(k, v, i, kind, g):
             if kind == KIND_BWD_WEIGHT:              # W: the params' gradient, B's graph
                 outs, cots, params_in = held.pop(k, v, i)
                 if params_in:                       # not a chunk of pad rows only
-                    apply_param_cots(k, v, torch.autograd.grad(outs, params_in, cots))
+                    u.param_cots(k, v, torch.autograd.grad(outs, params_in, cots))
                 store.pop(k, v, i)
                 return None
             assert kind in (KIND_BWD, KIND_BWD_INPUT), kind
             if kind == KIND_BWD:                     # fused: params and inputs at once
                 outs, cots, inputs, params_in = unit_graph(k, v, i, store.pop(k, v, i), g)
                 grads = torch.autograd.grad(outs, inputs + params_in, cots)
-                apply_param_cots(k, v, grads[len(inputs):])
+                u.param_cots(k, v, grads[len(inputs):])
                 return apply_input_cots(k, v, i, grads[:len(inputs)], outs)
             # B: the inputs' gradient now; the graph waits a tick for W
             outs, cots, inputs, params_in = unit_graph(k, v, i, store.get(k, v, i), g)
@@ -680,21 +772,139 @@ def _make_explicit_value_and_grad(p: _Plan) -> Callable:
         _run_ticks(p, run_fwd, run_bwd)
         assert not store.slots and not held.slots, "units left without their backward"
         value_and_grad_fn.residual_peak = store.peak
-        if not _hosts_all(p.ring):                   # the other ranks' shares
-            loss, d_emb, *d_head = (p.ring.all_reduce([a])[0] for a in [loss, d_emb] + d_head)
-            for acc in tree_leaves(d_main):
-                acc.copy_(p.ring.all_reduce([acc])[0])
+        return u.finish()
 
-        d_pro = tree_unflatten(pro, torch.autograd.grad(x_emb, list(tree_leaves(pro)), d_emb))
-        named = {"embed": d_pro["embed"].float(), "final_ln": d_head[0]}
-        if tied:
-            named["embed"] = named["embed"] + d_head[1]
-        else:
-            named["lm_head"] = d_head[1]
-        named["groups"] = {**d_pro["groups"], main_name: d_main}
-        grads = {key: tree_map(lambda g, a: g.to(a.dtype), named[key], params[key])
-                 for key in params}
-        return loss, grads
+    return value_and_grad_fn
+
+
+def _run_ticks_transposed(p: _Plan, run_bwd: Callable) -> None:
+    """The forward tick table run backwards, the transpose of
+    :func:`_run_ticks`'s forward ring (what JAX's AD makes of the
+    reference's ``ppermute``): reverse tick ``r`` is forward tick ``T-1-r``;
+    each hosted rank's forward unit there runs ``run_bwd(k, v, i, g)`` with
+    the cotangent of its output (None at the last global stage, which
+    seeds from the loss) and returns its input's cotangent or None; the
+    cotangents travel on the reverse ring.  A value that crossed the
+    forward wrap edge (rank K-1 -> 0) waited ``fwd_hold`` ticks at rank 0,
+    so its cotangent waits as long at rank K-1: a unit reads the value the
+    ring delivered ``hold`` reverse ticks before its own."""
+    K, tab, hold = p.K, p.tab, p.comm.fwd_hold
+    hosted = p.ring.ranks
+    n, h, T = len(hosted), p.comm.fwd_hold + 1, p.tab.shape[0]
+    gbuf = [[None] * h for _ in range(n)]
+    g_recv: List[Any] = [None] * n
+    for r in range(T):
+        t = T - 1 - r
+        for j in range(n):
+            gbuf[j][r % h] = g_recv[j]
+        g_sent: List[Any] = [None] * n
+        for j, k in enumerate(hosted):
+            if tab[t, k, 0] < 0:
+                continue
+            i, v, kind = (int(a) for a in tab[t, k])
+            assert kind == KIND_FWD, (t, k, kind)
+            g = None
+            if (k, v) != p.last:
+                g = gbuf[j][(r - (hold if k == K - 1 else 0)) % h]
+                assert g is not None, (t, k, v, i)
+            p.running = k
+            g_sent[j] = run_bwd(k, v, i, g)
+        p.running = None
+        g_recv = p.ring.shift(g_sent, step=-1)
+
+
+def _make_transposed_value_and_grad(p: _Plan) -> Callable:
+    """``(params, batch) -> (loss, grads)`` of a forward-only schedule on a
+    ring that hosts one rank per process, where autograd cannot run over
+    the whole tick loop: the same loss and gradients as that run, by the
+    transposed tick table (the reference differentiates its ring with
+    ``jax.value_and_grad``, ``pipeline.py:968-982``).
+
+    * The forward ticks run as in process, under grad: a value the ring
+      delivered enters its unit as a leaf, and so do the cache rows the
+      microbatch's earlier slice left (each layer under checkpoint when
+      ``cfg.remat``).  Each unit keeps its graph, its input and cache
+      leaves and its outputs.
+    * The last global stage reassembles its items, runs the post-groups,
+      the head and the loss on leaves of their own (``_make_loss_from_plan``
+      without the tick loop), and takes the cotangent of each item's output.
+    * The forward table runs again in reverse tick order
+      (:func:`_run_ticks_transposed`): each unit's ``torch.autograd.grad``
+      over its kept graph, with its output's cotangent from the reverse
+      ring (or the loss) and its cache outputs' from the microbatch's next
+      slice; its input's cotangent goes on the reverse ring (rank 0 chunk
+      0: into the embedding's), its cache inputs' to the microbatch's
+      previous slice.  Every send and receive sits in the tick
+      interpreter, none inside an autograd backward, so every rank pairs
+      them alike; the tensor-parallel all-reduces run inside each unit's
+      ``autograd.grad``, in the same order on every tp rank.
+    * :class:`_UnitGrads` sums the parameters' gradients and, at the end,
+      everything over the ring."""
+
+    def value_and_grad_fn(params, batch):
+        u = _UnitGrads(p, params, batch)
+        last_hosted = p.last[0] in p.ring.ranks
+        caches: Dict[Tuple[int, int], list] = {}
+        store = _ResidualStore(p.K, p.DM)             # every unit lives to the reverse pass
+        gcache: Dict[Tuple[int, int], list] = {}     # cache cotangent of the later slices
+        seeds: Dict[int, torch.Tensor] = {}           # the last stage's output cotangents
+
+        def run_fwd(k, v, i, x_in):
+            d, m = divmod(i, p.M)
+            x_in = (p.rows_of(u.x_det, d, m) if x_in is None else x_in).detach()
+            x_in.requires_grad_()
+            c_in = (p.fresh_caches(len(u.layers[k, v])) if m == 0
+                    else tree_map(_requiring_grad, caches[k, v]))
+            with torch.enable_grad():
+                x_out, caches[k, v] = p.stage_apply(u.layers[k, v], x_in, c_in, p.starts[m],
+                                                    remat=p.cfg.remat)
+            store.put(k, v, i, (x_in, c_in, x_out, caches[k, v]))
+            return x_out.detach()
+
+        def run_bwd(k, v, i, g):
+            d, m = divmod(i, p.M)
+            x_in, c_in, x_out, c_out = store.pop(k, v, i)
+            outs, cots = [x_out], [seeds.pop(i) if (k, v) == p.last else g]
+            if m < p.M - 1:
+                for o, c in zip(tree_leaves(c_out), gcache.pop((k, v))):
+                    if c is not None and o.requires_grad:
+                        outs.append(o)
+                        cots.append(c)
+            inputs = [x_in] + (list(tree_leaves(c_in)) if m > 0 else [])
+            params_in = list(tree_leaves(u.layers[k, v]))
+            grads = torch.autograd.grad(outs, inputs + params_in, cots, allow_unused=True)
+            u.param_cots(k, v, grads[len(inputs):])
+            if m > 0:
+                gcache[k, v] = grads[1:len(inputs)]
+            if (k, v) == (0, 0):
+                p.rows_of(u.d_emb, d, m).copy_(grads[0])
+                return None
+            return grads[0]
+
+        _run_ticks(p, run_fwd)
+        if last_hosted:
+            # the loss on the last stage's outputs: reassembled, then the
+            # post-groups, the head and the loss, as _make_loss_from_plan
+            outs = [store.get(*p.last, i)[2].detach().requires_grad_() for i in range(p.DM)]
+            with torch.enable_grad():
+                x_final = torch.cat([torch.cat(outs[d * p.M:(d + 1) * p.M], dim=1)
+                                     for d in range(p.D)], dim=0)
+                for g in p.post:
+                    x_final = _scan_full(g, u.post[g.name], x_final, p.cfg.remat)
+                loss = p.model.head_loss(u.head_params(), x_final, batch["labels"])
+                if p.data > 1:
+                    loss = loss * (p.b_local / p.B)
+            post = list(tree_leaves(u.post))
+            grads = torch.autograd.grad(loss, outs + post + [u.final_ln, u.w_head])
+            seeds.update(enumerate(grads[:p.DM]))
+            for acc, g in zip(tree_leaves(u.d_post), grads[p.DM:p.DM + len(post)]):
+                acc += g.float()
+            u.head_cots(grads[p.DM + len(post):])
+            u.loss = loss.detach().float()
+            del outs, x_final, loss, grads
+        _run_ticks_transposed(p, run_bwd)
+        assert not store.slots, "units left without their backward"
+        return u.finish()
 
     return value_and_grad_fn
 
@@ -710,7 +920,7 @@ def make_terapipe_loss(model: Model, tcfg: TeraPipeConfig, seq_len: int,
     p = _Plan(model, tcfg, seq_len, global_batch, n_ranks, groups)
     if not all(_hosts_all(g) for g in (p.ring, p.tp_group, p.data_group)):
         raise ValueError("make_terapipe_loss runs every rank in process; across processes use "
-                         "make_terapipe_value_and_grad with an explicit-backward schedule")
+                         "make_terapipe_value_and_grad")
     local = _make_loss_from_plan(p)
 
     def loss_fn(params, batch):
@@ -790,12 +1000,10 @@ def make_terapipe_value_and_grad(model: Model, tcfg: TeraPipeConfig, seq_len: in
     p = _Plan(model, tcfg, seq_len, global_batch, n_ranks, groups)
     if p.assign.has_backward:
         local = _make_explicit_value_and_grad(p)
-    else:
-        if not _hosts_all(p.ring):
-            raise ValueError(f"schedule {p.sched!r} differentiates the whole tick loop by "
-                             f"autograd, which does not cross processes; a ring that hosts "
-                             f"one rank per process runs the explicit-backward schedules")
+    elif _hosts_all(p.ring):
         local = value_and_grad(_make_loss_from_plan(p))
+    else:
+        local = _make_transposed_value_and_grad(p)
 
     def vg(params, batch):
         # each hosted data rank's graph in turn; then the sums over the

@@ -22,13 +22,22 @@ rank; here each process hosts one, its own:
 over a :class:`~repro_torch.launch.mesh.Mesh`, once the process group
 exists (:func:`init_process_group`: gloo for CPU tensors, NCCL for CUDA
 ones).  Axes of size 1 get no group (the executor hosts their one rank).
-The forward-only schedules differentiate the whole tick loop with autograd,
-which does not cross processes, so a ring hosting one rank serves the
-explicit-backward schedules.
+Every training schedule runs on a ring hosting one rank per process: the
+explicit-backward ones by their backward units, the forward-only ones by
+the transposed tick table (``core/pipeline.py``), whose sends and receives
+all sit in the tick interpreter, none inside an autograd backward.
+
+:class:`ThreadRing` is the in-process stand-in for one pipe rank per
+process: K threads, each hosting one rank behind ``DistRing``'s interface
+(``ranks == (k,)``, ``shift``, ``all_reduce``), so the path that crosses
+processes runs in one process, on the CPU or on one card.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import queue
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -167,3 +176,136 @@ def mesh_groups(mesh: Mesh, device: Optional[torch.device] = None) -> Dict[str, 
         else:
             out[axis] = DistGroup(pg, size, rank)
     return out
+
+
+class RingBroken(RuntimeError):
+    """Raised in a :class:`ThreadRing` rank that waited on a rank which
+    failed or never sent: the ring's first error is the cause."""
+
+
+class ThreadRing:
+    """The pipe axis's K ranks in one process, each hosted by a thread of
+    its own: the stand-in for one rank per process (the counterpart of
+    ``core/pipeline.py::LocalRing`` for that path).  ``run(fn)`` calls
+    ``fn(rank)`` on K threads, ``rank`` a :class:`ThreadRank` with
+    ``DistRing``'s interface, joins them and returns their results in rank
+    order; the first exception of any thread is raised there.
+
+    ``shift`` hands values through per-rank queues, each a copy (as a
+    process boundary makes one), tagged with the sender's count of shifts
+    in that direction: a receiver whose count differs raises, and one that
+    waits longer than ``timeout`` seconds raises ``TimeoutError``; either
+    error breaks the ring, so the other ranks raise :class:`RingBroken`
+    rather than wait.  ``all_reduce`` sums the ranks' values in rank order
+    (a bit-reproducible sum) and hands every rank the one result, which no
+    rank may write into.
+
+    On a card the threads share the current device and its default stream,
+    so a value a thread enqueued is ready, in stream order, for the thread
+    that reads it.  It hosts the pipe axis only: a tensor-parallel
+    all-reduce inside a CUDA backward would wait on the device thread that
+    PyTorch runs every thread's backward on."""
+
+    def __init__(self, size: int, timeout: float = 120.0):
+        self.size, self.timeout = size, timeout
+        self._boxes = {(k, step): queue.Queue() for k in range(size) for step in (1, -1)}
+        self._barrier = threading.Barrier(size)
+        self._slots: List[Any] = [None] * size
+        self._broken = threading.Event()
+
+    def rank(self, k: int) -> "ThreadRank":
+        return ThreadRank(self, k)
+
+    def _fail(self) -> None:
+        self._broken.set()
+        self._barrier.abort()
+
+    def run(self, fn: Callable[["ThreadRank"], Any]) -> List[Any]:
+        results: List[Any] = [None] * self.size
+        errors: List[Optional[BaseException]] = [None] * self.size
+        device = torch.cuda.current_device() if torch.cuda.is_available() else None
+
+        def body(k: int) -> None:
+            try:
+                if device is not None:
+                    torch.cuda.set_device(device)
+                results[k] = fn(self.rank(k))
+            except BaseException as e:  # noqa: BLE001 -- re-raised by run
+                errors[k] = e
+                self._fail()
+
+        threads = [threading.Thread(target=body, args=(k,), name=f"pipe-rank-{k}")
+                   for k in range(self.size)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        first = [e for e in errors if e is not None and not isinstance(e, RingBroken)]
+        first = first or [e for e in errors if e is not None]
+        if first:
+            raise first[0]
+        return results
+
+    def __repr__(self) -> str:
+        return f"ThreadRing({self.size})"
+
+
+class ThreadRank:
+    """One thread's rank of a :class:`ThreadRing`: ``ranks == (rank,)``."""
+
+    def __init__(self, ring: ThreadRing, rank: int):
+        self.ring, self.size, self.rank = ring, ring.size, rank
+        self.ranks = (rank,)
+        self._count = {1: 0, -1: 0}
+
+    def shift(self, sent: List[Optional[torch.Tensor]], step: int = 1) -> List[Optional[torch.Tensor]]:
+        assert len(sent) == 1 and step in (1, -1), (len(sent), step)
+        ring, x = self.ring, sent[0]
+        n = self._count[step]
+        self._count[step] = n + 1
+        if x is not None:
+            x = x.detach().clone()
+        ring._boxes[(self.rank + step) % self.size, step].put((n, x))
+        box, src = ring._boxes[self.rank, step], (self.rank - step) % self.size
+        deadline = time.monotonic() + ring.timeout
+        while True:
+            if ring._broken.is_set():
+                raise RingBroken(f"rank {self.rank}: the ring broke while it waited for rank "
+                                 f"{src} (shift {n}, step {step})")
+            try:
+                got_n, got = box.get(timeout=0.05)
+                break
+            except queue.Empty:
+                if time.monotonic() > deadline:
+                    ring._fail()
+                    raise TimeoutError(
+                        f"rank {self.rank}: no value from rank {src} within {ring.timeout} s "
+                        f"(shift {n}, step {step}): a rank skipped a tick or failed") from None
+        if got_n != n:
+            ring._fail()
+            raise RuntimeError(f"rank {self.rank}: shift {n} (step {step}) received rank {src}'s "
+                               f"shift {got_n}: the ranks ran different tick tables")
+        return [got]
+
+    def all_reduce(self, values: List[torch.Tensor]) -> List[torch.Tensor]:
+        assert len(values) == 1, len(values)
+        ring = self.ring
+        ring._slots[self.rank] = values[0]
+        try:
+            ring._barrier.wait(ring.timeout)          # every rank's value is in
+            if self.rank == 0:
+                total = ring._slots[0]
+                for v in ring._slots[1:]:
+                    total = total + v
+                ring._slots[0] = total
+            ring._barrier.wait(ring.timeout)          # the sum is in slot 0
+            total = ring._slots[0]
+            ring._barrier.wait(ring.timeout)          # every rank has read it
+        except threading.BrokenBarrierError:
+            ring._fail()
+            raise RingBroken(f"rank {self.rank}: all_reduce broken (a rank failed or timed "
+                             f"out)") from None
+        return [total]
+
+    def __repr__(self) -> str:
+        return f"ThreadRank(rank {self.rank} of {self.size})"

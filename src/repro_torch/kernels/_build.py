@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -77,13 +78,28 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     return targets
 
 
+#: the pipeline's rank threads (``distributed.transport.ThreadRing``) load
+#: and launch the kernels from several threads at once
+_LOCK = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build_all([name])[name]))
-        _LOADED[name] = lib
+        with _LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(build_all([name])[name]))
+                _LOADED[name] = lib
     return lib
+
+
+def count(wrapper) -> None:
+    """One launch more on ``wrapper.launches``, under the lock, so that no
+    launch from another thread is lost."""
+    with _LOCK:
+        wrapper.launches += 1
 
 
 def check(err: int, what: str) -> None:

@@ -56,7 +56,7 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  k.stride(1), v.stride(0), v.stride(1), out.stride(0),
                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attention_kernel")
-    decode_attention_kernel.launches += 1
+    _build.count(decode_attention_kernel)
     return out
 
 

@@ -60,7 +60,7 @@ def terapipe_attention_dq(q, k, v, do, lse, delta, ctx: int) -> torch.Tensor:
         int(q.dtype == torch.bfloat16), *_strides(q, k, v, do, dq),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "terapipe_attention_dq")
-    terapipe_attention_dq.launches += 1
+    _build.count(terapipe_attention_dq)
     return dq
 
 
@@ -79,7 +79,7 @@ def terapipe_attention_dkv(q, k, v, do, lse, delta, ctx: int):
         int(q.dtype == torch.bfloat16), *_strides(q, k, v, do, dk, dv),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "terapipe_attention_dkv")
-    terapipe_attention_dkv.launches += 1
+    _build.count(terapipe_attention_dkv)
     return dk, dv
 
 

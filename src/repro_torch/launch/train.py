@@ -29,6 +29,24 @@ Modes:
 * ``gpipe``: the same executor with D microbatches and M = 1.
 The pipelined modes never fall back to the gspmd step.
 
+One process per card (the reference's mesh over its devices,
+``repro/launch/train.py:200-205``): under ``torchrun`` (``WORLD_SIZE`` > 1)
+the pipelined modes run on ``Mesh(data=n // pipe, pipe=min(4, n))`` over
+the ``n`` processes, each hosting one rank of each axis
+(``distributed/transport.py``): NCCL on ``cuda:LOCAL_RANK``, or gloo on
+the CPU with ``--device cpu``.  Every rank builds the same parameters from
+``--seed``, takes its data rank's rows of each batch, and applies the same
+AdamW update to the summed gradients; at the end a checksum of the
+parameters must be equal on every rank.  ``--dp-plan`` plans on rank 0,
+which hands the slices to the others; only rank 0 prints.  Refused across
+processes, each with its reason: ``--mode gspmd`` (the reference builds no
+mesh for it) and the checkpoint options (``--checkpoint-dir``,
+``--simulate-failure-at``)::
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch gpt3-1b --use-kernel --mode terapipe --token-slices 8 \
+        --steps 3 --batch 4 --seq 2048
+
 Fault tolerance, the reference's supervisor (``repro/launch/train.py``,
 PR 3's contract), in every mode and schedule:
 * ``--checkpoint-dir``: a checkpoint (``checkpoint/manager.py``, the
@@ -49,6 +67,7 @@ PR 3's contract), in every mode and schedule:
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 import traceback
@@ -68,6 +87,8 @@ from repro_torch.core.schedules import (KIND_BWD, KIND_BWD_INPUT, KIND_BWD_WEIGH
                                         check_virtual_stages, schedule_help, schedule_names)
 from repro_torch.core.simulator import simulate
 from repro_torch.data.pipeline import DataPipeline, SyntheticSource
+from repro_torch.distributed import transport
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import build_model
 from repro_torch.optim.adamw import adamw, apply_updates, cosine_schedule
 from repro_torch.tree import tree_leaves, tree_map
@@ -75,6 +96,32 @@ from repro_torch.tree import tree_leaves, tree_map
 #: pipeline ranks: the reference's ``pipe = min(4, n_devices)`` on any host
 #: with four devices or more; on one card the ranks are virtual
 PIPE_RANKS = 4
+
+
+def launch_mesh(n: int) -> Mesh:
+    """The reference's mesh over ``n`` devices (``repro/launch/train.py:
+    200-205``): ``pipe = min(4, n)``, ``data = n // pipe``; ``n`` must fill
+    it, as the reference's ``make_mesh`` requires."""
+    pipe = min(PIPE_RANKS, n)
+    if n < 1 or n % pipe:
+        raise ValueError(f"{n} processes do not fill the reference's (data, pipe) mesh: pipe = "
+                         f"min(4, n) = {pipe} must divide n (repro/launch/train.py:200-205)")
+    return Mesh(data=n // pipe, pipe=pipe)
+
+
+def check_processes(args, n: int) -> None:
+    """What the launcher refuses with ``n`` > 1 processes, each with the
+    reason the reference gives."""
+    if n <= 1:
+        return
+    if args.mode == "gspmd":
+        raise ValueError("--mode gspmd runs one process: the reference's launcher builds no "
+                         "mesh for it (repro/launch/train.py:202), so its step is one "
+                         "device's; use --mode terapipe or gpipe across processes")
+    if args.checkpoint_dir or args.simulate_failure_at >= 0:
+        raise ValueError("--checkpoint-dir / --simulate-failure-at run one process: "
+                         "checkpoints across processes are not ported yet (ROADMAP Queue 1)")
+
 
 def plan_slices(cfg, seq: int, n_ranks: int, hw: HardwareSpec, *, microbatches: int = 1,
                 batch: int = 1, schedule: str = "contiguous", virtual_stages: int = 1):
@@ -153,10 +200,15 @@ def _promoted_schedule(args) -> str:
     return args.schedule
 
 
-def build_value_and_grad(model, args):
-    """``(params, batch) -> (loss, grads)`` for the selected mode."""
+def build_value_and_grad(model, args, mesh=None, groups=None):
+    """``(params, batch) -> (loss, grads)`` for the selected mode; the
+    pipelined modes on ``mesh`` with the process's ``groups`` (default:
+    ``PIPE_RANKS`` virtual ranks in process).  Across processes
+    ``--dp-plan`` plans on rank 0 alone and hands its slices to the
+    others."""
     if args.mode == "gspmd":
         return value_and_grad(model.loss)
+    mesh = mesh or Mesh(pipe=PIPE_RANKS)
     schedule = _promoted_schedule(args)
     slice_lens = None
     if args.dp_plan:
@@ -164,16 +216,63 @@ def build_value_and_grad(model, args):
         # slice, priced at that batch; on the CPU: the reference's own
         # target at its batch of 1, so a CPU plan equals the reference's
         on_card = model.device.type == "cuda"
-        slice_lens, _ = plan_slices(
-            model.cfg, args.seq, PIPE_RANKS, H100 if on_card else TPU_V5E,
-            microbatches=args.microbatches,
-            batch=args.batch // args.microbatches if on_card else 1,
-            schedule=schedule, virtual_stages=args.virtual_stages)
+        planned = [None]
+        if not _distributed() or torch.distributed.get_rank() == 0:
+            planned[0], _ = plan_slices(
+                model.cfg, args.seq, mesh.get("pipe"), H100 if on_card else TPU_V5E,
+                microbatches=args.microbatches,
+                batch=args.batch // args.microbatches if on_card else 1,
+                schedule=schedule, virtual_stages=args.virtual_stages)
+        if _distributed():
+            torch.distributed.broadcast_object_list(planned, src=0)
+        slice_lens = planned[0]
     tcfg = TeraPipeConfig(
         n_token_slices=args.token_slices if args.mode == "terapipe" else 1,
         slice_lens=slice_lens, n_microbatches=args.microbatches,
         schedule=schedule, virtual_stages=args.virtual_stages)
-    return make_terapipe_value_and_grad(model, tcfg, args.seq, args.batch, PIPE_RANKS)
+    return make_terapipe_value_and_grad(model, tcfg, args.seq, args.batch, mesh, groups)
+
+
+def _distributed() -> bool:
+    return torch.distributed.is_available() and torch.distributed.is_initialized()
+
+
+def _start_processes(args) -> tuple:
+    """Under torchrun: the process group (NCCL on ``cuda:LOCAL_RANK``, gloo
+    with ``--device cpu``), the launch mesh and this process's groups, and
+    the device it runs on.  One process: ``(None, None, args.device)``."""
+    n = int(os.environ.get("WORLD_SIZE", "1"))
+    check_processes(args, n)
+    if n == 1:
+        return None, None, args.device
+    mesh = launch_mesh(n)
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    elif device.type != "cpu":
+        raise ValueError(f"--device {args.device}: across processes cuda (NCCL) or cpu (gloo)")
+    if not _distributed():
+        transport.init_process_group("env://", int(os.environ["RANK"]), n,
+                                     "nccl" if device.type == "cuda" else "gloo")
+    return mesh, transport.mesh_groups(mesh, device), device
+
+
+def _check_ranks_agree(params) -> None:
+    """Raises unless every rank's checksum of the parameters (the sum and
+    the sum of squares in float64, leaf by leaf in tree order) is rank
+    0's: every rank must have applied the same updates."""
+    mine = torch.zeros(2, dtype=torch.float64, device=next(iter(tree_leaves(params))).device)
+    for a in tree_leaves(params):
+        a = a.detach().double()
+        mine[0] += a.sum()
+        mine[1] += (a * a).sum()
+    every = [torch.empty_like(mine) for _ in range(torch.distributed.get_world_size())]
+    torch.distributed.all_gather(every, mine)
+    differ = [r for r, c in enumerate(every) if not torch.equal(c, every[0])]
+    if differ:
+        raise RuntimeError(f"ranks {differ} ended with parameters unlike rank 0's "
+                           f"(checksums {[c.tolist() for c in every]})")
 
 
 def train_step(vg_fn, opt, state: dict, batch) -> torch.Tensor:
@@ -239,14 +338,21 @@ def main(argv=None, history: Optional[list] = None, out: Optional[dict] = None) 
     if args.dp_plan and args.mode != "terapipe":
         ap.error("--dp-plan plans token slices: it needs --mode terapipe")
 
+    try:
+        mesh, groups, device = _start_processes(args)
+    except ValueError as e:
+        ap.error(str(e))
+    lead = not _distributed() or torch.distributed.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.use_kernel:
         cfg = cfg.replace(use_kernel=True)
     if cfg.family == "moe":          # a routing group is moe_block tokens
         args.seq = max(args.seq, cfg.moe_block)
-    model = build_model(cfg, device=args.device)
+    model = build_model(cfg, device=device)
     dev = model.device
-    vg_fn = build_value_and_grad(model, args)
+    vg_fn = build_value_and_grad(model, args, mesh, groups)
     opt = adamw(cosine_schedule(args.lr, args.warmup, args.steps))
     state = {"params": tree_map(lambda p: p.requires_grad_(True), model.init(args.seed))}
     state["opt_state"] = opt.init(state["params"])
@@ -316,8 +422,8 @@ def main(argv=None, history: Optional[list] = None, out: Optional[dict] = None) 
                    "ms_per_step": dt / steps_since * 1e3}
             if history is not None:
                 history.append(rec)
-            print(f"step {step:5d} loss {loss_f:.4f} {rec['tok_s']:,.0f} tok/s "
-                  f"{rec['ms_per_step']:.1f} ms/step", flush=True)
+            say(f"step {step:5d} loss {loss_f:.6f} {rec['tok_s']:,.0f} tok/s "
+                f"{rec['ms_per_step']:.1f} ms/step", flush=True)
             t_last, tok_count, steps_since = time.time(), 0, 0
         if ckpt and (step % args.checkpoint_every == 0 or step == args.steps):
             _print_io(ckpt, f"saved {ckpt.save(step, tree(step))}")
@@ -326,8 +432,11 @@ def main(argv=None, history: Optional[list] = None, out: Optional[dict] = None) 
         out["checkpoints"] = list(ckpt.log) if ckpt else []
     final = float(loss) if loss is not None else float("nan")
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))
-    print(f"done: {args.steps} steps, final loss {final:.4f} "
-          f"({cfg.name}, {n_params:,} parameters, {dev}, mode {args.mode})")
+    where = f"{dev}" if mesh is None else f"{mesh.size} processes on {mesh}, {dev.type}"
+    if mesh is not None:
+        _check_ranks_agree(state["params"])
+    say(f"done: {args.steps} steps, final loss {final:.4f} "
+        f"({cfg.name}, {n_params:,} parameters, {where}, mode {args.mode})")
     return final
 
 
@@ -339,4 +448,8 @@ def _print_io(ckpt: CheckpointManager, what: str) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if _distributed():
+            torch.distributed.destroy_process_group()

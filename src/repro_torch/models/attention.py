@@ -39,7 +39,8 @@ they refuse a group that hosts several ranks (one cache each would be
 needed); under a group that hosts one rank (one process per rank, as
 ``distributed.transport.DistGroup``, or the dry run's recording group) they
 run that rank's heads on its cache and sum the output projection's partial
-over the axis.
+over the axis.  ``attn_cross`` and ``cross_kv`` take the hosted ranks'
+shards too: each rank projects and attends with its own heads.
 """
 from __future__ import annotations
 
@@ -401,25 +402,44 @@ def attn_cross(p, cfg: ModelConfig, x: torch.Tensor, enc_k: torch.Tensor,
                enc_v: torch.Tensor) -> torch.Tensor:
     """Cross-attention: the decoder's queries over the encoder's K/V
     (``cross_kv``), with no RoPE and no mask; plain PyTorch, as the
-    reference's (it has no kernel)."""
+    reference's (it has no kernel).  Under tensor parallelism ``enc_k`` /
+    ``enc_v`` hold the hosted ranks' KV heads in rank order, each rank
+    attends with its own, and the output projection's partials are summed
+    over the axis (``_over_ranks``)."""
     b, s, _ = x.shape
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, -1, cfg.hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-    ek, ev = enc_k.to(q.dtype), enc_v.to(q.dtype)
-    if s > _BLOCKED_THRESHOLD or ek.shape[1] > _BLOCKED_THRESHOLD:
-        out = attention_blocked_bidir(q, ek, ev)
-    else:
-        out = attention_scores_gqa(q, ek, ev, mask=None)
-    return _out_proj(p, cfg, out, b, s, x.dtype)
+    hd = cfg.hd
+    cuts = [q["wk"].shape[-1] // hd for q in shards(p)]
+    kvs = list(zip(torch.split(enc_k, cuts, dim=2), torch.split(enc_v, cuts, dim=2)))
+
+    def heads(p, x, kv):
+        q = (x @ p["wq"].to(x.dtype)).reshape(b, s, -1, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"])
+        ek, ev = (a.to(q.dtype) for a in kv)
+        if s > _BLOCKED_THRESHOLD or ek.shape[1] > _BLOCKED_THRESHOLD:
+            return attention_blocked_bidir(q, ek, ev), kv
+        return attention_scores_gqa(q, ek, ev, mask=None), kv
+
+    return _over_ranks(p, cfg, x, kvs, heads)[0]
 
 
 def cross_kv(p, cfg: ModelConfig, enc_out: torch.Tensor):
     """The encoder output's K and V for one decoder layer's
-    cross-attention, computed once per sequence."""
+    cross-attention, computed once per sequence.  Under tensor parallelism
+    each hosted rank projects its own KV heads (its shard of ``wk`` /
+    ``wv``, the heads ``kv_heads_of_rank`` keeps where they are
+    replicated) from its view of the replicated encoder output (the
+    region, whose gradient is summed over the axis); the ranks' heads are
+    concatenated in rank order, as :func:`attn_cross` reads them."""
     b, s, _ = enc_out.shape
-    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(b, s, -1, cfg.hd)
-    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(b, s, -1, cfg.hd)
-    if cfg.qk_norm:
-        k = rms_norm(k, p["k_norm"])
-    return k, v
+    ks, vs = [], []
+    for p_r, x_r in zip(shards(p), tp_group(cfg.tp_axis).region(enc_out)):
+        k = (x_r @ p_r["wk"].to(x_r.dtype)).reshape(b, s, -1, cfg.hd)
+        v = (x_r @ p_r["wv"].to(x_r.dtype)).reshape(b, s, -1, cfg.hd)
+        if cfg.qk_norm:
+            k = rms_norm(k, p_r["k_norm"])
+        ks.append(k)
+        vs.append(v)
+    if len(ks) == 1:
+        return ks[0], vs[0]
+    return torch.cat(ks, dim=2), torch.cat(vs, dim=2)

@@ -74,6 +74,8 @@ def _unstack(tree) -> List[Any]:
     if isinstance(tree, dict):
         per_key = {k: _unstack(v) for k, v in tree.items()}
         return [dict(zip(per_key, layer)) for layer in zip(*per_key.values())]
+    if isinstance(tree, list):       # the hosted tp ranks' stacks: per layer, their list
+        return [list(layer) for layer in zip(*(_unstack(t) for t in tree))]
     return list(torch.unbind(tree))
 
 
@@ -550,18 +552,22 @@ def _make_dec_group(cfg: ModelConfig, name: str, count: int, device):
     layer's encoder K/V, FFN.  Its blocks take and return ``(x, enc_kv)``
     in every mode, as the reference's do."""
     def cross_ffn(bp, x, ek, ev):
-        x = x + attn_mod.attn_cross(bp["cross"], cfg, rms_norm(x, bp["ln_cross"]), ek, ev)
-        return x + layers_mod.ffn(bp["ffn"], rms_norm(x, bp["ln_ffn"]))
+        x = x + attn_mod.attn_cross(per_rank(bp, "cross"), cfg,
+                                    rms_norm(x, replicated(bp, "ln_cross")), ek, ev)
+        return x + layers_mod.ffn(per_rank(bp, "ffn"), rms_norm(x, replicated(bp, "ln_ffn")),
+                                  cfg.tp_axis)
 
     def full(bp, x_and_enc):
         x, (ek, ev) = x_and_enc
-        x = x + attn_mod.attn_full(bp["self"], cfg, rms_norm(x, bp["ln_self"]))
+        x = x + attn_mod.attn_full(per_rank(bp, "self"), cfg,
+                                   rms_norm(x, replicated(bp, "ln_self")))
         return cross_ffn(bp, x, ek, ev), (ek, ev)
 
     def with_cache(attn_fn):
         def block(bp, x_and_enc, cache, arg):
             x, (ek, ev) = x_and_enc
-            a, cache = attn_fn(bp["self"], cfg, rms_norm(x, bp["ln_self"]), cache, arg)
+            a, cache = attn_fn(per_rank(bp, "self"), cfg, rms_norm(x, replicated(bp, "ln_self")),
+                               cache, arg)
             return (cross_ffn(bp, x + a, ek, ev), (ek, ev)), cache
         return block
 
@@ -619,7 +625,7 @@ class EncDecModel(Model):
         for bp_l in _unstack(params["groups"]["enc"]):
             x = body(bp_l, x)
         x = rms_norm(x, params["enc_ln"])
-        kv = [attn_mod.cross_kv(bp_l["cross"], self.cfg, x)
+        kv = [attn_mod.cross_kv(per_rank(bp_l, "cross"), self.cfg, x)
               for bp_l in _unstack(params["groups"]["dec"])]
         return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
 

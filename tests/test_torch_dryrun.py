@@ -436,7 +436,7 @@ def _smoke_cell(arch, shape_name, mode, tmp_path, **kw):
 
 
 def test_every_smoke_cell(tmp_path, capsys):
-    failed = {}
+    failed, whisper = {}, {}
     for arch, shape_name, mode in itertools.product(configs.ARCHS, configs.SHAPES,
                                                     ("gspmd", "terapipe")):
         rec = _smoke_cell(arch, shape_name, mode, tmp_path, use_kernel=True)
@@ -466,7 +466,21 @@ def test_every_smoke_cell(tmp_path, capsys):
         if mode == "terapipe":
             assert rec["collectives_counted"]["collective-permute"] > 0
             assert rec["collectives_derived"]["collective-permute"] > 0
+        elif arch == "whisper-medium":
+            whisper[kind] = rec["collectives_counted"]["all-reduce"]
     capsys.readouterr()
+    # whisper's TP-local program sums every block's partials: per encoder
+    # layer attention and FFN, per decoder layer self-attention,
+    # cross-attention and FFN (one all-reduce each on the activation, rows
+    # x d_model in bf16, ring weight 2); the backward pass sums each
+    # region's input gradient, and the encoder output's once per decoder
+    # layer (its cross K/V projection)
+    cfg = configs.get_config("whisper-medium", smoke=True)
+    n_enc, n_dec, s = cfg.n_enc_layers, cfg.n_dec_layers, SMOKE_SHAPE["train"].seq_len
+    unit = SMOKE_SHAPE["train"].global_batch * cfg.d_model * 2 * 2
+    assert whisper == {"decode": 3 * n_dec * unit,
+                       "prefill": (2 * n_enc + 3 * n_dec) * s * unit,
+                       "train": (2 * (2 * n_enc + 3 * n_dec) + n_dec) * s * unit}, whisper
     refused = {dryrun.cell_tag(a, s, False, "gspmd"): "NotImplementedError"
                for a in ("mamba2-2.7b", "recurrentgemma-9b") for s in configs.SHAPES}
     refused.update({dryrun.cell_tag(a, s, False, "terapipe"): "ValueError"

@@ -477,6 +477,57 @@ def test_rec_block_mamba2_and_explicit_schedules_refuse_tp():
                                         data_axes=()), 16, 2)
 
 
+def _rank_stacks(params, specs, cfg, tp, r):
+    """Tp rank ``r``'s block of every stacked leaf of a group (the stage
+    placements without the layer axis)."""
+    def leaf(spec, a):
+        ps = pipeline._leaf_pspec(spec, "tp", tp, "pipe", cfg)
+        return sharding.local_shard(a, (None,) + tuple(ps[1:]), Mesh(tp=tp), {"tp": r})
+    return sharding.map_specs(leaf, specs, params)
+
+
+def test_whisper_decoder_under_tp_matches_unsharded_and_jax():
+    """whisper-medium SMOKE (f32) as the TP-local model on a LocalGroup
+    hosting tp 2 (every group's stacks the two ranks' blocks): its decoder
+    runs self-attention, cross-attention (each rank's KV heads of the
+    encoder output) and the FFN on the ranks' shards and sums them over the
+    group.  Forward and loss within 2e-4 of the unsharded model's and of
+    JAX's ``model.forward`` / ``model.loss`` on the same parameters, and
+    the loss's gradients (through the shards' views) of the unsharded
+    model's."""
+    arch, tp = "whisper-medium", 2
+    jcfg, cfg = _f32(arch)
+    assert cfg.n_kv_heads % tp == 0
+    jparams = _jax_params(arch)
+    params = tree_map(lambda a: a.requires_grad_(True), params_from_jax(jparams, "cpu"))
+    model = build_model(cfg, "cpu")
+    local = build_model(_local_cfgs(jcfg, cfg, tp, LocalGroup(tp))[1], "cpu")
+    specs = model.specs()["groups"]
+    tp_params = {**params, "groups": {
+        g: [_rank_stacks(sub, specs[g], cfg, tp, r) for r in range(tp)]
+        for g, sub in params["groups"].items()}}
+    rng = np.random.RandomState(5)
+    batch = {"tokens": rng.randint(0, cfg.vocab_size, (2, 16)).astype(np.int32),
+             "labels": rng.randint(0, cfg.vocab_size, (2, 16)).astype(np.int32),
+             "frames": rng.randn(2, 24, cfg.d_model).astype(np.float32)}
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    jmodel = jax_build_model(jcfg)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jlogits = jax.jit(jmodel.forward)(jparams, jbatch)
+    jloss = jax.jit(jmodel.loss)(jparams, jbatch)
+    logits = local.forward(tp_params, tbatch)
+    _close(logits, model.forward(params, tbatch).detach(), "tp 2 logits vs unsharded")
+    _close(logits, jlogits, "tp 2 logits vs JAX")
+    loss = local.loss(tp_params, tbatch)
+    want = model.loss(params, tbatch)
+    _close(loss, want.detach(), "tp 2 loss vs unsharded")
+    _close(loss, jloss, "tp 2 loss vs JAX")
+    leaves = list(tree_leaves(params))
+    for got, ref, (path, _) in zip(torch.autograd.grad(loss, leaves),
+                                   torch.autograd.grad(want, leaves), tree_items(params)):
+        _close(got, ref, f"tp 2 grad {path} vs unsharded")
+
+
 # ---------------------------------------------------------- (d) the pipelined step
 @functools.lru_cache(maxsize=None)
 def _jax_params(arch, **changes):

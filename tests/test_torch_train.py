@@ -288,7 +288,7 @@ def test_train_main_matches_jax_loop(jax_params, monkeypatch, capsys):
     got = [r["loss"] for r in history]
     assert [r["step"] for r in history] == list(range(1, steps + 1))
     printed = re.findall(r"^step +\d+ loss (\S+)", capsys.readouterr().out, flags=re.M)
-    assert printed == [f"{x:.4f}" for x in got]
+    assert printed == [f"{x:.6f}" for x in got]
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
     np.testing.assert_allclose(final, want[-1], rtol=TOL, atol=TOL)
     assert want[0] != want[-1]      # the updates moved the loss
