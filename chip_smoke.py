@@ -191,9 +191,16 @@ result line):
                loss and every gradient bit-equal to the in-process
                LocalRing/LocalGroup run (the forward-only schedules across
                processes: within 2e-6 of each leaf's largest magnitude
-               where not, those leaves named); then the launcher under
-               torchrun on four CPU processes (gloo, Mesh(data=1, pipe=4))
-               beside one process, the printed losses within 1e-6;
+               where not, those leaves named), a process whose ring hosts
+               one rank holding and returning only its blocks; then the
+               launcher under torchrun on four CPU processes (gloo,
+               Mesh(data=1, pipe=4)) beside one process, 4 steps with a
+               checkpoint every 2, the printed losses within 1e-6, and at
+               the same time four processes with a fault at step 3, every
+               rank restored at step 2, its final checkpoint bit-equal to
+               the run's without the fault; then --resume from the four
+               processes' step 2 on two processes and on one, final
+               checkpoints within 2e-6 of the four processes';
  8e. dryrun  — launch/dryrun.py's prediction on the meta device, no step on
                the card: gpt3-1b's make_train_step at batch 4 x seq 2048
                with kernels (as phase 8c ran it) and the contiguous M 8
@@ -213,8 +220,20 @@ result line):
                LocalRing run, one value-and-grad each, under contiguous M 8
                and gpipe D 2: every rank's loss and gradient leaves
                bit-equal (or within 2e-6 of each leaf's largest magnitude,
-               the leaves named), launches exactly 384 / 192 / 192 and 96 /
-               48 / 48 in each run, ms and the peak above the state of each;
+               the leaves named), each rank holding only its shard of the
+               parameters (its stage's rows; embedding, head and final
+               norm whole) and returning its blocks' gradients, launches
+               exactly 384 / 192 / 192 and 96 / 48 / 48 in each run, ms and
+               the peak above the state of each; at contiguous M 8 each
+               rank's resident parameters, AdamW moments and batch equal to
+               the dry run's per-device state_bytes to the byte, then an
+               AdamW step on the four shards (the clip norm summed over
+               the ranks, one value on every rank, within 1e-6 of the
+               in-process gradient's), a save from the four ranks
+               (gathered on rank 0 into the reference's one proc0.npz,
+               20.3 GiB) and a restore into one process on the card, every
+               leaf holding each rank's blocks bit for bit, the save's and
+               restore's GB/s;
   9. times   — each kernel at a main-path shape (CUDA events, median of 30
                after warm-up, L2 flushed before each launch) beside its
                bound, its plain version and one PyTorch library call; the
@@ -262,16 +281,19 @@ import torch  # noqa: E402
 from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
 from repro_torch.analysis import audit, errors  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager, meta_target  # noqa: E402
 from repro_torch.configs import (ARCHS, PAPER_ARCHS, SHAPES, ShapeSpec,  # noqa: E402
                                  get_config, input_specs, skip_reason)
 from repro_torch.core.cost_model import (H100, AnalyticCostModel,  # noqa: E402
                                          fit_efficiency_and_floor,
                                          measure_kernel_cost_table)
 from repro_torch.core.pipeline import (TeraPipeConfig, make_terapipe_loss,  # noqa: E402
-                                       make_terapipe_value_and_grad, value_and_grad)
+                                       make_terapipe_value_and_grad, shard_params,
+                                       value_and_grad)
 from repro_torch.core.schedules import REGISTRY, get_schedule  # noqa: E402
 from repro_torch.data.pipeline import DataPipeline, SyntheticSource  # noqa: E402
 from repro_torch.distributed import transport  # noqa: E402
+from repro_torch.distributed.sharding import REPLICATED, Block  # noqa: E402
 from repro_torch.distributed.collectives import (bf16_compress,  # noqa: E402
                                                  bf16_decompress, int8_ef_compress,
                                                  int8_ef_decompress, int8_ef_init)
@@ -294,10 +316,12 @@ from repro_torch.launch.steps import (abstract_caches, abstract_init,  # noqa: E
                                      make_prefill_step, make_train_step)
 from repro_torch.models import attention, build_model, lm, moe  # noqa: E402
 from repro_torch.models.common import rms_norm  # noqa: E402
-from repro_torch.optim.adamw import adamw, cosine_schedule  # noqa: E402
+from repro_torch.optim.adamw import (AdamWState, adamw, apply_updates,  # noqa: E402
+                                     cosine_schedule, global_norm, world_sq_norm)
 from repro_torch.serve import DecodeEngine, EngineConfig  # noqa: E402
 from repro_torch.timing import PEAK_BF16_FLOPS, bound_ms, time_ms  # noqa: E402
-from repro_torch.tree import jax_items, tree_items, tree_leaves, tree_map  # noqa: E402
+from repro_torch.tree import (jax_items, jax_leaves, tree_items, tree_leaves,  # noqa: E402
+                              tree_map)
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # f32 with logits scaled x30: rounding of |logits| ~ 100 shows in the
@@ -2686,12 +2710,17 @@ GLOO_CASES = (
 )
 GLOO_BATCH, GLOO_SEQ, GLOO_THREADS = 4, 32, 2
 GLOO_REL = 2e-6
-# the launcher across four CPU processes against one process
+# the launcher across four CPU processes against one process, each with a
+# checkpoint every LAUNCH_EVERY steps; four processes again with a fault
+# at LAUNCH_FAULT, then --resume from the four processes' step
+# LAUNCH_EVERY on each of LAUNCH_RESUME processes
 LAUNCH_ARGS = ["--arch", "gpt3-1b", "--smoke", "--device", "cpu", "--mode", "terapipe",
-               "--token-slices", "4", "--steps", "3", "--batch", "4", "--seq", "64",
+               "--token-slices", "4", "--steps", "4", "--batch", "4", "--seq", "64",
                "--log-every", "1"]
 LAUNCH_PROCS = 4
 LAUNCH_BOUND = 1e-6
+LAUNCH_EVERY, LAUNCH_FAULT, LAUNCH_RESUME = 2, 3, (2, 1)
+LAUNCH_DIR = ROOT / "build" / "launch_ckpt"
 
 
 def _mesh_steps(cfg, tcfg: TeraPipeConfig, mesh: Mesh, label: str,
@@ -2862,7 +2891,9 @@ def _gloo_setup(arch: str, tkw: dict):
 def _gloo_worker(rank: int, address: str, world: int, out_dir: str) -> None:
     """One of ``world`` processes: the loss and gradients of each case whose
     mesh has ``world`` ranks, through the transport's groups for its mesh,
-    saved for the parent."""
+    on the process's shard of the parameters (where its ring hosts one
+    rank), saved for the parent with the blocks it holds (plain tuples:
+    ``Block(*b)``; ``None`` where it holds everything)."""
     transport.init_process_group(address, rank, world, "gloo")
     try:
         for i, (_, arch, mesh, tkw, _) in enumerate(GLOO_CASES):
@@ -2871,7 +2902,11 @@ def _gloo_worker(rank: int, address: str, world: int, out_dir: str) -> None:
             model, params, batch, tcfg = _gloo_setup(arch, tkw)
             vg = make_terapipe_value_and_grad(model, tcfg, GLOO_SEQ, GLOO_BATCH, mesh,
                                               transport.mesh_groups(mesh))
-            torch.save(vg(params, batch), Path(out_dir) / f"rank{rank}_case{i}.pt")
+            layout = vg.plan.shard_layout(params)
+            blocks = (None if layout is None else
+                      [ls.mine.astuple() for ls in tree_leaves(layout)])
+            loss, grads = vg(shard_params(params, layout), batch)
+            torch.save((loss, grads, blocks), Path(out_dir) / f"rank{rank}_case{i}.pt")
     finally:
         torch.distributed.destroy_process_group()
 
@@ -2883,16 +2918,21 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _held_to(got_loss, got: dict, loss, want: dict, exact: bool) -> tuple:
+def _held_to(got_loss, got: dict, loss, want: dict, exact: bool,
+             blocks: Optional[dict] = None) -> tuple:
     """``(verdict, worst, not bit-equal leaves)`` of one rank's loss and
     gradients against the in-process run's: bit-equal, or (unless
     ``exact``) within GLOO_REL of each leaf's largest magnitude; raises
-    otherwise."""
+    otherwise.  ``blocks``: per path the rank's :class:`Block` of the
+    leaf, which its gradient is held to (cut one leaf at a time)."""
     if got.keys() != want.keys():
         raise AssertionError(f"gradient leaves differ: {sorted(got.keys() ^ want.keys())}")
     differ, worst = [], 0.0
     for path, a in got.items():
-        w = want[path]
+        w = want[path] if blocks is None else blocks[path].cut(want[path])
+        if a.shape != w.shape:
+            raise AssertionError(f"{path}: the rank holds {tuple(a.shape)}, its block is "
+                                 f"{tuple(w.shape)}")
         if torch.equal(a, w):
             continue
         differ.append(path)
@@ -2936,16 +2976,21 @@ def _gloo_transport() -> None:
                                                        mesh)(params, batch)
             want = dict(tree_items(grads))
             for rank in range(mesh.size):
-                got_loss, got = torch.load(out_dir / f"rank{rank}_case{i}.pt")
+                got_loss, got, blocks = torch.load(out_dir / f"rank{rank}_case{i}.pt")
+                if blocks is not None:
+                    blocks = {path: Block(*b) for path, b in zip(want, blocks)}
                 try:
                     verdict, worst, differ = _held_to(got_loss, dict(tree_items(got)), loss,
-                                                      want, exact)
+                                                      want, exact, blocks)
                 except AssertionError as e:
                     raise AssertionError(f"parallel: gloo {label} rank {rank} differs from the "
                                          f"in-process run: {e}") from None
+                held = ("" if blocks is None else
+                        f", its blocks ({sum(g.numel() for g in tree_leaves(got))} of "
+                        f"{sum(w.numel() for w in want.values())} elements)")
                 log(f"[parallel] gloo {label}, rank {rank} of {mesh.size}: loss "
                     f"{got_loss.item():.7f} (in process {loss.item():.7f}), {len(want)} "
-                    f"gradient leaves, {verdict}"
+                    f"gradient leaves{held}, {verdict}"
                     + (f" (worst {worst:.3g}; not bit-equal: {', '.join(differ)})"
                        if differ else ""))
     finally:
@@ -2961,22 +3006,12 @@ def _printed_losses(text: str) -> list:
     return [float(x) for x in re.findall(r"^step +\d+ loss (\S+)", text, flags=re.M)]
 
 
-def _launcher_processes() -> None:
-    """``python -m torch.distributed.run --standalone --nproc-per-node 4 -m
-    repro_torch.launch.train`` LAUNCH_ARGS (gloo, Mesh(data=1, pipe=4), one
-    rank per process) against the same launcher in one process (4 virtual
-    ranks): every printed loss within LAUNCH_BOUND, rank 0 the only one
-    that prints, and the launcher's own check that every rank ends with
-    the same parameters."""
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": str(GLOO_THREADS)}
+def _launch_all(cmds: dict, env: dict) -> dict:
+    """Every command of ``cmds`` (label -> argv) at once; per label its
+    ``(stdout, seconds from the start)``; raises on a non-zero exit."""
     t0 = time.time()
-    procs = {label: subprocess.Popen(cmd + LAUNCH_ARGS, cwd=ROOT, env=env, text=True,
-                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE)
-             for label, cmd in (
-                 ("one process", [sys.executable, "-m", "repro_torch.launch.train"]),
-                 (f"torchrun {LAUNCH_PROCS} processes",
-                  [sys.executable, "-m", "torch.distributed.run", "--standalone",
-                   "--nproc-per-node", str(LAUNCH_PROCS), "-m", "repro_torch.launch.train"]))}
+    procs = {label: subprocess.Popen(cmd, cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE) for label, cmd in cmds.items()}
     runs = {}
     try:
         for label, proc in procs.items():
@@ -2989,20 +3024,103 @@ def _launcher_processes() -> None:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    (one, one_s), (many, many_s) = runs.values()
-    want, got = _printed_losses(one), _printed_losses(many)
-    done = [line for line in many.splitlines() if line.startswith("done:")]
+    return runs
+
+
+def _npz_leaves(d: Path, step: int) -> dict:
+    with np.load(d / f"step_{step:08d}" / "proc0.npz") as data:
+        return {k: data[k] for k in data.files}
+
+
+def _checkpoints_held(got: dict, want: dict, exact: bool) -> str:
+    """One final checkpoint against another, leaf by leaf: bit-equal, or
+    (unless ``exact``) within GLOO_REL of each leaf's largest magnitude;
+    raises otherwise."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"checkpoint leaves differ: {sorted(got.keys() ^ want.keys())}")
+    differ = [k for k in want if not np.array_equal(got[k], want[k])]
+    if not differ:
+        return "bit-equal"
+    worst = max(float(np.abs(got[k].astype(np.float64) - want[k].astype(np.float64)).max())
+                / max(float(np.abs(want[k].astype(np.float64)).max()), 1e-30) for k in differ)
+    if exact or worst > GLOO_REL:
+        raise AssertionError(f"{len(differ)} of {len(want)} leaves differ (worst {worst:.3g})")
+    return (f"{len(differ)} of {len(want)} leaves not bit-equal, worst {worst:.3g} "
+            f"(bound {GLOO_REL:g})")
+
+
+def _launcher_processes() -> None:
+    """``python -m torch.distributed.run --standalone --nproc-per-node 4 -m
+    repro_torch.launch.train`` LAUNCH_ARGS (gloo, Mesh(data=1, pipe=4), one
+    rank per process, each holding its stage's shard) with a checkpoint
+    every LAUNCH_EVERY steps, against the same launcher in one process (4
+    virtual ranks) and, at the same time, four processes with a fault at
+    LAUNCH_FAULT: every printed loss of one process and four within
+    LAUNCH_BOUND, rank 0 the only one that prints, the launcher's own
+    check that every rank ends with the same replicated parameters, the
+    faulted run restored at LAUNCH_EVERY on every rank and its final
+    checkpoint bit-equal to the run without the fault.  Then ``--resume``
+    from the four processes' step LAUNCH_EVERY on each of LAUNCH_RESUME
+    processes at once: final checkpoints within GLOO_REL of the four
+    processes' (another count of processes sums in another order)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": str(GLOO_THREADS)}
+    shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+    LAUNCH_DIR.mkdir(parents=True)
+    one = [sys.executable, "-m", "repro_torch.launch.train"]
+    torchrun = lambda n: [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc-per-node", str(n), "-m", "repro_torch.launch.train"]
+    ck = lambda name: ["--checkpoint-dir", str(LAUNCH_DIR / name), "--checkpoint-every",
+                       str(LAUNCH_EVERY)]
+    many = f"torchrun {LAUNCH_PROCS} processes"
+    faulted = f"{many}, fault at step {LAUNCH_FAULT}"
+    runs = _launch_all({
+        "one process": one + LAUNCH_ARGS + ck("one"),
+        many: torchrun(LAUNCH_PROCS) + LAUNCH_ARGS + ck("many"),
+        faulted: torchrun(LAUNCH_PROCS) + LAUNCH_ARGS + ck("faulted")
+        + ["--simulate-failure-at", str(LAUNCH_FAULT)]}, env)
+    (one_out, one_s), (many_out, many_s), (fault_out, fault_s) = runs.values()
+    steps = int(LAUNCH_ARGS[LAUNCH_ARGS.index("--steps") + 1])
+    want, got = _printed_losses(one_out), _printed_losses(many_out)
+    done = [line for line in many_out.splitlines() if line.startswith("done:")]
     worst = max((abs(a - b) for a, b in zip(got, want)), default=float("inf"))
     log(f"[parallel] launcher: torchrun --nproc-per-node {LAUNCH_PROCS} -m repro_torch.launch.train "
-        f"{' '.join(LAUNCH_ARGS)}: losses {got} (done {many_s:.1f} s after the start), one "
-        f"process at the same time {want} ({one_s:.1f} s), largest difference {worst:.3g} (bound {LAUNCH_BOUND:g}); "
-        f"{done[0] if done else 'no done line'}")
-    if len(got) != 3 or len(want) != 3 or worst > LAUNCH_BOUND:
+        f"{' '.join(LAUNCH_ARGS + ck('many')[2:])}: losses {got} (done {many_s:.1f} s after the "
+        f"start), one process at the same time {want} ({one_s:.1f} s), largest difference "
+        f"{worst:.3g} (bound {LAUNCH_BOUND:g}); {done[0] if done else 'no done line'}")
+    if len(got) != steps or len(want) != steps or worst > LAUNCH_BOUND:
         raise AssertionError("parallel: the launcher across processes printed other losses "
                              "than in one process")
     if len(done) != 1 or f"{LAUNCH_PROCS} processes on Mesh(data=1, pipe={LAUNCH_PROCS})" \
             not in done[0]:
         raise AssertionError(f"parallel: the torchrun launcher's done lines: {done}")
+    final = _npz_leaves(LAUNCH_DIR / "many", steps)
+    restored = [line for line in fault_out.splitlines() if line.startswith("[fault] restored")]
+    ckpt_lines = [line for line in many_out.splitlines() if line.startswith("[ckpt]")]
+    verdict = _checkpoints_held(_npz_leaves(LAUNCH_DIR / "faulted", steps), final, exact=True)
+    log(f"[parallel] launcher {faulted}: {restored}, final step {steps} checkpoint against "
+        f"{many}'s: {verdict} ({fault_s:.1f} s); one process's against it: "
+        f"{_checkpoints_held(_npz_leaves(LAUNCH_DIR / 'one', steps), final, exact=False)}; "
+        f"{many}'s checkpoint lines: {ckpt_lines}")
+    if restored != [f"[fault] restored checkpoint at step {LAUNCH_EVERY}"]:
+        raise AssertionError(f"parallel: the faulted launcher restored {restored}")
+
+    src = LAUNCH_DIR / "many" / f"step_{LAUNCH_EVERY:08d}"
+    for n in LAUNCH_RESUME:
+        shutil.copytree(src, LAUNCH_DIR / f"resume{n}" / src.name)
+    resumed = _launch_all({
+        n: (torchrun(n) if n > 1 else one) + LAUNCH_ARGS + ck(f"resume{n}") + ["--resume"]
+        for n in LAUNCH_RESUME}, env)
+    for n, (out, sec) in resumed.items():
+        lines = [line for line in out.splitlines()
+                 if line.startswith(("[resume]", "[ckpt] restored", "done:"))]
+        log(f"[parallel] launcher --resume from {many}'s step {LAUNCH_EVERY} on {n} "
+            f"process{'es' if n > 1 else ''} ({sec:.1f} s): {lines}; losses "
+            f"{_printed_losses(out)} (the four processes': {got[LAUNCH_EVERY:]}); final "
+            f"checkpoint against {many}'s: "
+            f"{_checkpoints_held(_npz_leaves(LAUNCH_DIR / f'resume{n}', steps), final, False)}")
+        if f"[resume] restored step {LAUNCH_EVERY}" not in lines:
+            raise AssertionError(f"parallel: the --resume on {n} processes: {lines}")
+    shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
 
 
 def phase_parallel() -> dict:
@@ -3091,29 +3209,133 @@ def phase_dryrun() -> None:
 
 # ------------------------------------------- 8f. one pipe rank per thread
 RPP_MESH = Mesh(pipe=PIPE_RANKS)
-#: gpt3-1b's contiguous M 8 and gpipe D 2 at batch RPP_BATCH x TRAIN_SEQ
-RPP_CASES = (("contiguous M 8", {"n_token_slices": PIPE_SLICES}, PIPE_SLICES),
-             ("gpipe D 2", {"n_token_slices": 1, "n_microbatches": 2}, 2))
+#: gpt3-1b's contiguous M 8 (with the sharded state's AdamW step, save and
+#: restore) and gpipe D 2 at batch RPP_BATCH x TRAIN_SEQ
+RPP_CASES = (("contiguous M 8", {"n_token_slices": PIPE_SLICES}, PIPE_SLICES, True),
+             ("gpipe D 2", {"n_token_slices": 1, "n_microbatches": 2}, 2, False))
 RPP_BATCH = TRAIN_BATCH
 RPP_REL = 2e-6
+RPP_NORM_REL = 1e-6       # the clip norm summed over the shards against one process's
+RPP_DIR = ROOT / "build" / "rpp_ckpt"
+# the ThreadRing run when every rank held the whole parameters (PERF.md
+# section 6): its peak above the state, and each rank's whole parameters
+# and AdamW moments
+RPP_WHOLE_PEAK_GIB = 30.68
+RPP_WHOLE_STATE_GIB = 20.30
 
 
 def _launch_counts() -> dict:
     return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
-def _rank_per_thread(cfg, label: str, tkw: dict, work_items: int) -> dict:
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in jax_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _rpp_state(ring, grads_of: list, shards: list, whole, norm: float) -> None:
+    """The sharded state's AdamW step on every rank (the clip norm summed
+    over the ranks first, within RPP_NORM_REL of the in-process gradient's
+    ``norm``; then one rank's update at a time: one rank's new moments
+    above the state), a save of the four ranks' shards (gathered on rank
+    0, one leaf at a time) and a restore into one process on the card,
+    every leaf of which must hold each rank's block bit for bit; the
+    save's and the restore's GB/s."""
+    shutil.rmtree(RPP_DIR, ignore_errors=True)
+    RPP_DIR.mkdir(parents=True)
+    free = shutil.disk_usage(RPP_DIR).free
+    file_bytes = 3 * _nbytes(whole)
+    if free < 1.2 * file_bytes:
+        raise AssertionError(f"rank-per-process: {free / 2**30:.1f} GiB free under {RPP_DIR}, "
+                             f"the checkpoint takes {file_bytes / 2**30:.1f}")
+    lock = threading.Lock()
+    norms = [None] * len(shards)
+
+    def step_and_save(rank):
+        k = rank.rank
+        layout, params, opt_state = shards[k]
+        grads, grads_of[k] = grads_of[k], None
+        # the world's squared norm first (a collective), then the updates
+        # one rank at a time
+        total = world_sq_norm(layout, rank)(
+            [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)])
+        opt = adamw(cosine_schedule(3e-4, 20, 100), sq_norm_reduce=lambda sq: total)
+        norms[k] = float(torch.sqrt(total))
+        with lock:
+            updates, opt_state = opt.update(grads, opt_state, params)
+            del grads
+            params = apply_updates(params, updates)
+            del updates
+            torch.cuda.synchronize()
+        shards[k] = (layout, params, opt_state)
+        ck = {"params": layout, "opt": AdamWState(REPLICATED, layout, layout), "step": REPLICATED}
+        mgr = CheckpointManager(str(RPP_DIR), world=rank)
+        mgr.save(1, {"params": params, "opt": opt_state, "step": 1}, layout=ck)
+        return mgr.log[-1], ck
+
+    saved = ring.run(step_and_save)
+    rec = saved[0][0]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    target = {"params": whole, "opt": adamw(1e-3).init(whole), "step": 0}
+    mgr = CheckpointManager(str(RPP_DIR))
+    got = mgr.restore(target=target, device=next(tree_leaves(shards[0][1])).device)
+    torch.cuda.synchronize()
+    back = mgr.log[-1]
+    held = (torch.cuda.memory_allocated() - base) / 2**30
+    differ = []
+    lay_leaves = [jax_leaves(ck) for _, ck in saved]
+    rank_trees = [jax_leaves({"params": p, "opt": o, "step": 1}) for _, p, o in shards]
+    for i, (path, w) in enumerate(jax_items(got)):
+        for k in range(len(shards)):
+            a, ls = rank_trees[k][i], lay_leaves[k][i]
+            if isinstance(a, torch.Tensor):
+                if not torch.equal(a, ls.mine.cut(w)):
+                    differ.append(f"rank {k} {path}")
+            elif int(w) != a:
+                differ.append(f"rank {k} {path}")
+    del got, rank_trees
+    torch.cuda.empty_cache()
+    norm_rel = max(abs(n - norm) for n in norms) / norm
+    log(f"[rank-per-process] {_card()}; AdamW step on the {len(shards)} ranks' shards (clip "
+        f"norm summed over the ranks: {norms[0]:.9g} on every rank: {len(set(norms)) == 1}; in "
+        f"process {norm:.9g}, relative {norm_rel:.3g}, bound {RPP_NORM_REL:g}), then a save from "
+        f"the {len(shards)} ranks: rank 0's share "
+        f"{rec['bytes'] / 2**30:.3f} GiB of a {rec['file_bytes'] / 2**30:.3f} GiB file in "
+        f"{rec['seconds']:.2f} s ({rec['file_bytes'] / rec['seconds'] / 1e9:.2f} GB/s); "
+        f"restore into one process on the card: {back['bytes'] / 2**30:.3f} GiB "
+        f"({held:.3f} GiB allocated) in {back['seconds']:.2f} s "
+        f"({back['bytes'] / back['seconds'] / 1e9:.2f} GB/s, the file warm in the page cache); "
+        f"every leaf against each rank's blocks: "
+        + ("bit-equal" if not differ else f"{len(differ)} differ: {differ[:8]}"))
+    shutil.rmtree(RPP_DIR, ignore_errors=True)
+    if differ:
+        raise AssertionError("rank-per-process: the restored checkpoint differs from the ranks' "
+                             "blocks")
+    if len(set(norms)) != 1 or norm_rel > RPP_NORM_REL:
+        raise AssertionError(f"rank-per-process: clip norms {norms} against {norm} in process")
+
+
+def _rank_per_thread(cfg, label: str, tkw: dict, work_items: int, with_state: bool) -> dict:
     """One value-and-grad of ``cfg`` at RPP_BATCH x TRAIN_SEQ on RPP_MESH:
-    in process (LocalRing: autograd over the tick loop), then with one pipe
-    rank per thread (transport.ThreadRing, four threads on the one card:
-    the transposed tick table, the path of one rank per process).  Every
-    rank's loss and gradients against the in-process run (bit-equal, or
-    within RPP_REL of each leaf's largest magnitude, the leaves named),
-    the launches of each run exactly _launches_per_step's, the peak above
-    the state of each.  Returns the ThreadRing run's launches."""
+    in process (LocalRing: autograd over the tick loop, the whole
+    parameters), then with one pipe rank per thread (transport.ThreadRing,
+    four threads on the one card: the transposed tick table, the path of
+    one rank per process), each rank on its shard of the parameters
+    (shard_params: the rows of its stage, the embedding, head and final
+    norm whole).  Every rank's loss and gradient blocks against the
+    in-process run's (bit-equal, or within RPP_REL of each leaf's largest
+    magnitude, the leaves named), the launches of each run exactly
+    _launches_per_step's, the peak above the state of each.  With
+    ``with_state``, each rank also holds AdamW moments on its shard before
+    the call: its resident state (parameters, moments, the batch) must be
+    the dry run's per-device state_bytes (trace_terapipe at each tensor's
+    bytes), and _rpp_state follows.  Returns the ThreadRing run's
+    launches."""
     model = build_model(cfg.replace(use_kernel=True))
     tcfg = TeraPipeConfig(**tkw)
     params = tree_map(lambda p: p.requires_grad_(True), model.init(seed=0))
+    whole = meta_target(params)
     toks = train_launch.make_data(cfg, RPP_BATCH, TRAIN_SEQ, 0).batch_at(0)
     batch = {k: torch.from_numpy(a).cuda() for k, a in toks.items()}
     want_counts = {k: _launches_per_step(cfg, work_items).get(k, 0) for k in COUNTERS}
@@ -3136,35 +3358,72 @@ def _rank_per_thread(cfg, label: str, tkw: dict, work_items: int) -> dict:
     (loss, grads), runs["in process"] = measured(lambda: make_terapipe_value_and_grad(
         model, tcfg, TRAIN_SEQ, RPP_BATCH, RPP_MESH)(params, batch))
     want = dict(tree_items(grads))
+    del grads
+    whole_gib = sum(a.numel() * a.element_size() for a in tree_leaves(params)) / 2**30
 
-    def rank_run(rank):
-        got_loss, got = make_terapipe_value_and_grad(model, tcfg, TRAIN_SEQ, RPP_BATCH, RPP_MESH,
-                                                     {"pipe": rank})(params, batch)
-        got = dict(tree_items(got))
-        # one rank's verdict at a time: the comparison's temporaries are
-        # one leaf's
-        with _RPP_LOCK:
-            return _held_to(got_loss, got, loss, want, exact=False), float(got_loss)
+    def cut(rank):
+        layout = make_terapipe_value_and_grad(model, tcfg, TRAIN_SEQ, RPP_BATCH, RPP_MESH,
+                                              {"pipe": rank}).plan.shard_layout(params)
+        shard = shard_params(params, layout)
+        return layout, shard, adamw(1e-3).init(shard) if with_state else None
 
     ring = transport.ThreadRing(PIPE_RANKS)
+    shards = ring.run(cut)
+    del params
+    torch.cuda.empty_cache()
+    resident = [_nbytes({"p": p, "o": o, "batch": batch}) for _, p, o in shards]
+    grads_of = [None] * PIPE_RANKS
+
+    def rank_run(rank):
+        layout, shard, _ = shards[rank.rank]
+        got_loss, got = make_terapipe_value_and_grad(model, tcfg, TRAIN_SEQ, RPP_BATCH, RPP_MESH,
+                                                     {"pipe": rank})(shard, batch)
+        items = dict(tree_items(got))
+        blocks = {path: ls.mine for path, ls in zip(items, tree_leaves(layout))}
+        # one rank's verdict at a time: the comparison's temporaries are
+        # one leaf's block
+        with _RPP_LOCK:
+            verdict = _held_to(got_loss, items, loss, want, False, blocks)
+        if with_state:
+            grads_of[rank.rank] = got
+        held = sum(g.numel() * g.element_size() for g in items.values())
+        return verdict, float(got_loss), held
+
     verdicts, runs["ThreadRing"] = measured(lambda: ring.run(rank_run))
-    state = sum(a.numel() * a.element_size() for a in tree_leaves(params)) / 2**30
-    for k, ((verdict, worst, differ), got_loss) in enumerate(verdicts):
+    for k, ((verdict, worst, differ), got_loss, held) in enumerate(verdicts):
         log(f"[rank-per-process] {label}, rank {k} of {PIPE_RANKS} (thread): loss "
-            f"{got_loss:.7f} (in process {loss.item():.7f}), {len(want)} gradient leaves, "
-            f"{verdict}" + (f" (worst {worst:.3g}; not bit-equal: {', '.join(differ)})"
-                            if differ else ""))
+            f"{got_loss:.7f} (in process {loss.item():.7f}), {len(want)} gradient leaves of its "
+            f"blocks ({held / 2**30:.3f} GiB), {verdict}"
+            + (f" (worst {worst:.3g}; not bit-equal: {', '.join(differ)})" if differ else ""))
     log(f"[rank-per-process] {_card()}; {cfg.name} FULL width, {cfg.n_layers} layers, "
         f"{RPP_MESH}, {label}, batch {RPP_BATCH} x seq {TRAIN_SEQ}, bf16, kernels, one "
         f"value-and-grad: " + "; ".join(
-            f"{k} {r['ms']:.1f} ms, peak {r['peak_gib']:.2f} GiB above the state's "
-            f"{state:.2f} GiB of parameters, launches {r['counts']}" for k, r in runs.items())
-        + f" (want {want_counts} each)")
+            f"{k} {r['ms']:.1f} ms, peak {r['peak_gib']:.2f} GiB above the state, launches "
+            f"{r['counts']}" for k, r in runs.items())
+        + f" (want {want_counts} each); the whole parameters {whole_gib:.2f} GiB, each rank's "
+        f"resident state " + ", ".join(f"{r / 2**30:.3f}" for r in resident)
+        + f" GiB ({'parameters, AdamW moments' if with_state else 'parameters'} and the batch; "
+        f"the ThreadRing peak above the state was {RPP_WHOLE_PEAK_GIB} GiB with every rank "
+        f"holding the whole parameters)")
     for k, r in runs.items():
         if {n: r["counts"][n] for n in want_counts} != want_counts:
             raise AssertionError(f"rank-per-process {label} {k}: launches {r['counts']} != "
                                  f"{want_counts}")
-    del model, params, grads, want
+    norm = float(global_norm(want))
+    del want
+    if with_state:
+        shape = ShapeSpec("rpp", TRAIN_SEQ, RPP_BATCH, "train")
+        predicted = dryrun.trace_terapipe(cfg, shape, RPP_MESH, tcfg, per_device=True,
+                                          block=1)["state_bytes"]
+        log(f"[rank-per-process] {cfg.name}: resident state per rank "
+            + ", ".join(f"{r / 2**30:.4f}" for r in resident)
+            + f" GiB against the dry run's per-device state_bytes {predicted / 2**30:.4f} GiB "
+            f"(every rank holding the whole state: {RPP_WHOLE_STATE_GIB} GiB)")
+        if any(r != predicted for r in resident):
+            raise AssertionError(f"rank-per-process: resident state {resident} != the dry run's "
+                                 f"{predicted}")
+        _rpp_state(ring, grads_of, shards, whole, norm)
+    del model, shards, grads_of
     torch.cuda.empty_cache()
     return runs["ThreadRing"]["counts"]
 
@@ -3178,8 +3437,8 @@ def phase_rank_per_process() -> dict:
     t0 = time.time()
     cfg = _gpt3_1b()
     torch.cuda.empty_cache()
-    counts = {f"rank-per-process {label}": _rank_per_thread(cfg, label, tkw, items)
-              for label, tkw, items in RPP_CASES}
+    counts = {f"rank-per-process {label}": _rank_per_thread(cfg, label, tkw, items, state)
+              for label, tkw, items, state in RPP_CASES}
     log(f"[rank-per-process] {_card()}; phase 8f took {time.time() - t0:.1f} s")
     return counts
 

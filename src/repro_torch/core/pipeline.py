@@ -94,6 +94,20 @@ What differs from the reference, and why the result does not:
   after it on the reassembled sequence, before the head; the explicit-
   backward schedules take the loss at the last stage, so they refuse
   post-groups, and, as the reference's, every family but dense and moe.
+* **Stage-sharded state across processes.** On a ring that hosts one rank
+  per process (``DistRing``, ``ThreadRing``) a process holds only the
+  blocks of the ranks it hosts (:meth:`_Plan.shard_layout`,
+  :func:`shard_params`): of the main group's stacked leaves the layer rows
+  of its chunks and, under a tp group that hosts one rank, that rank's
+  block by :func:`_leaf_pspec`; everything else (embedding, head, final
+  norm, pre- and post-groups) whole.  Its gradients come back in the same
+  shapes, and only the replicated leaves' are summed over the ring.  With
+  ``V = 1`` and K dividing the stack this is the reference's
+  ``param_shardings_fn`` placement; with ``V > 1`` a rank holds the rows it
+  computes (the reference holds a contiguous block at rest and re-shards
+  it every step), and where K·V does not divide the stack the rows are
+  uneven (the reference replicates the layer axis).  A process that hosts
+  every rank of an axis holds that axis whole.
 * **The vlm family** runs as the dense one on a sequence of patches +
   text: the prologue's embedding puts the patch rows first, so the first
   slices may hold only patches, and the loss after the pipeline is taken
@@ -103,13 +117,14 @@ What differs from the reference, and why the result does not:
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec, local_shard_tree,
-                                              map_specs)
+from repro_torch.distributed.sharding import (Block, LeafShards, NamedSharding, PartitionSpec,
+                                              local_shard_tree, map_specs)
 from repro_torch.launch.mesh import Mesh, data_axes
 from repro_torch.models import Model, build_model
 from repro_torch.models.attention import tp_local_kv_heads, tp_rank_attn
@@ -318,6 +333,22 @@ class _Plan:
                 self.rows[k, v] = (min(lo, self.n_main), min(hi, self.n_main))
         self.last = (K - 1, V - 1)                   # the last global stage
 
+        # one rank per process: the process holds the rows of its chunks
+        # (and, under a tp group hosting one rank, that rank's block), in
+        # chunk order; ``local_rows`` are each hosted chunk's rows there
+        self.sharded = not _hosts_all(self.ring)
+        self.tp_sharded = self.sharded and tp > 1 and not _hosts_all(self.tp_group)
+        self.local_rows = self.rows
+        self.world = None
+        if self.sharded:
+            self.local_rows, off = {}, 0
+            for v in range(V):
+                for k in self.ring.ranks:
+                    lo, hi = self.rows[k, v]
+                    self.local_rows[k, v] = (off, off + hi - lo)
+                    off += hi - lo
+            self._set_world(groups)
+
         # the model's own config decides the attention route (use_kernel);
         # the stages run the TP-local model (reference :269-281), whose
         # state groups (mamba2, the rec block) refuse tp when built
@@ -338,6 +369,36 @@ class _Plan:
             self.cfg_local, self.main_local = cfg, self.main
         self.block_fn = self.main_local.sliced_dyn
         self.running: Optional[int] = None           # the rank whose unit runs (_run_ticks)
+        # per main-group leaf path: whether _leaf_pspec cuts it over tp
+        self.tp_cut = dict(tree_items(map_specs(
+            lambda s: "tp" in _leaf_pspec(s, "tp", tp, "pipe", cfg)[1:],
+            model.specs()["groups"][self.main.name])))
+
+    def _set_world(self, groups: Dict[str, Any]) -> None:
+        """The world: every process of the run (``groups["world"]``, or the
+        ring where it is the only axis hosted one rank per process), laid
+        out row-major over the axes that host one rank per process, in the
+        mesh's order (``transport.mesh_groups``' layout)."""
+        by_axis = {"pipe": self.ring, "tp": self.tp_group}
+        if self.data_axes:
+            by_axis[self.data_axes[0]] = self.data_group
+        self.world_axes = [(a, by_axis[a]) for a in self.mesh.axis_names
+                           if a in by_axis and not _hosts_all(by_axis[a])]
+        names = [a for a, _ in self.world_axes]
+        world = groups.get("world")
+        if world is None:
+            if names != ["pipe"]:
+                raise ValueError(f"the axes {names} host one rank per process: pass the group "
+                                 f"over every process as groups['world']")
+            world = self.ring
+        sizes = [g.size for _, g in self.world_axes]
+        self.world_coords = [dict(zip(names, c)) for c in
+                             itertools.product(*(range(n) for n in sizes))]
+        mine = {a: g.ranks[0] for a, g in self.world_axes}
+        if world.size != len(self.world_coords) or self.world_coords[world.rank] != mine:
+            raise ValueError(f"the world {world} is not the row-major layout of the groups' "
+                             f"axes {dict(zip(names, sizes))} at this process's ranks {mine}")
+        self.world = world
 
     def local_batch(self, batch, r: int):
         """Data rank ``r``'s rows of every leaf of ``batch``."""
@@ -373,6 +434,50 @@ class _Plan:
 
         return param_shardings
 
+    def shard_layout(self, params) -> Any:
+        """On a ring that hosts one rank per process: per leaf of the whole
+        tree ``params`` (meta tensors will do), how the world's processes
+        hold it, a :class:`~repro_torch.distributed.sharding.LeafShards`
+        in the parameters' structure.  The main group's stacked leaves:
+        every process the rows of its pipe rank's chunks, in chunk order,
+        cut over tp as :func:`_leaf_pspec` places them where the process
+        hosts one tp rank, owned by data rank 0 (and tp rank 0 where tp
+        does not cut them); every other leaf whole, owned by world rank 0.
+        ``None`` where the ring hosts every rank (one process holds it all)."""
+        if not self.sharded:
+            return None
+        cfg, tp, me = self.cfg, self.tp, self.world.rank
+        coord = self.world_coords[me]
+
+        def block(ps, shape, c) -> Block:
+            rows = [self.rows[c["pipe"], v] for v in range(self.V)]
+            cuts = []
+            for d in range(1, len(shape)):
+                if self.tp_sharded and ps[d] == "tp":
+                    assert shape[d] % tp == 0, (shape, tp)
+                    n = shape[d] // tp
+                    cuts.append((c["tp"] * n, (c["tp"] + 1) * n))
+                else:
+                    cuts.append(None)
+            return Block([r for r in rows if r[1] > r[0]], cuts)
+
+        def main_leaf(spec, a):
+            ps = _leaf_pspec(spec, "tp", tp, "pipe", cfg)
+            cut_on = {"pipe"} | ({"tp"} if self.tp_sharded and "tp" in ps[1:] else set())
+            owned = all(i == 0 for ax, i in coord.items() if ax not in cut_on)
+            return LeafShards(a.shape, [block(ps, a.shape, c) for c in self.world_coords], me,
+                              owned)
+
+        whole = lambda spec, a: LeafShards(a.shape, None, me, me == 0)
+        out = {}
+        for key, sub in self.model.specs().items():
+            if key == "groups":
+                out[key] = {g: map_specs(main_leaf if g == self.main.name else whole, gs,
+                                         params[key][g]) for g, gs in sub.items()}
+            else:
+                out[key] = map_specs(whole, sub, params[key])
+        return tree_map(lambda a, ls: ls, params, out)      # the parameters' order
+
     def prefix(self, params, batch) -> torch.Tensor:
         """The prologue before the pipeline (reference ``:307-319``): the
         embedding, then the pre-groups on the whole sequence (each layer
@@ -389,22 +494,25 @@ class _Plan:
         return a[d * self.mb:(d + 1) * self.mb, ctx:ctx + self.slice_lens[m]]
 
     def chunk_layers(self, main_params, leaf=lambda a: a) -> Dict[Tuple[int, int], list]:
-        """Per (rank, chunk), the per-layer parameter dicts of its rows,
-        each leaf ``leaf`` of its row's view; under tensor parallelism each
-        layer is the list of the hosted tp ranks' blocks of it
-        (``local_shard``).  One unbind per stacked leaf: under autograd the
-        backward pass stacks each leaf's gradient once rather than
-        scattering each chunk's into a zero tensor of the whole stack."""
+        """Per hosted (rank, chunk), the per-layer parameter dicts of its
+        rows (``local_rows`` of the process's stack), each leaf ``leaf`` of
+        its row's view; under tensor parallelism each layer is the list of
+        the hosted tp ranks' blocks of it (``local_shard``, unless the
+        process holds its one tp rank's block already).  One unbind per
+        stacked leaf: under autograd the backward pass stacks each leaf's
+        gradient once rather than scattering each chunk's into a zero
+        tensor of the whole stack."""
         layers = [tree_map(leaf, layer) for layer in _unstack(main_params)]
         if self.tp > 1:
             layers = [[self._tp_rank_layer(layer, r) for r in self.tp_group.ranks]
                       for layer in layers]
-        return {kv: layers[lo:hi] for kv, (lo, hi) in self.rows.items()}
+        return {kv: layers[lo:hi] for kv, (lo, hi) in self.local_rows.items()}
 
     def _tp_rank_layer(self, layer, r: int):
         """Tp rank ``r``'s block of one layer's parameters; its attention
         keeps the KV heads its q heads read where they are replicated."""
-        block = local_shard_tree(layer, self.layer_specs, self.mesh, {"tp": r})
+        block = (dict(layer) if self.tp_sharded else
+                 local_shard_tree(layer, self.layer_specs, self.mesh, {"tp": r}))
         if "attn" in block:
             block["attn"] = tp_rank_attn(block["attn"], self.cfg, self.tp, r)
         return block
@@ -560,16 +668,24 @@ class _UnitGrads:
       cotangent the units at rank 0 chunk 0 write into it, by rows;
     * ``loss`` the sum of the loss terms this process computed.
 
-    ``finish`` sums everything over the ring when it hosts one rank per
-    process (each rank contributes its units' shares and zeros), maps the
-    layers' sums back onto the stacked leaves (one autograd pass over the
-    views that cut them), runs the prologue's one autograd pass and returns
-    ``(loss, grads)`` in the parameters' structure and dtypes."""
+    ``finish`` sums the replicated leaves' gradients over the ring when it
+    hosts one rank per process (each rank contributes its units' shares and
+    zeros; the main group's rows are the process's own), maps the layers'
+    sums back onto the stacked leaves (one autograd pass over the views
+    that cut them), runs the prologue's one autograd pass and returns
+    ``(loss, grads)`` in the parameters' structure, shapes and dtypes."""
 
     def __init__(self, p: _Plan, params, batch):
         self.p, self.params = p, params
         self.tied = tied = p.cfg.tie_embeddings
         main = params["groups"][p.main.name]
+        if p.sharded:
+            rows = sum(hi - lo for lo, hi in p.local_rows.values())
+            got = next(iter(tree_leaves(main))).shape[0]
+            if got != rows:
+                raise ValueError(f"the main group has {got} layer rows, this process's shard "
+                                 f"{rows}: on a ring that hosts one rank per process pass "
+                                 f"shard_params(params, vg.plan.shard_layout(params))")
         with torch.enable_grad():
             # the stacked leaves and their per-chunk views (tp: the rank's
             # blocks), through which ``finish`` maps the sums back
@@ -616,13 +732,11 @@ class _UnitGrads:
     def finish(self):
         p = self.p
         d_main = self.main_grads()
-        if not _hosts_all(p.ring):                   # the other ranks' shares
+        if p.sharded:                                # the other ranks' shares
             reduce = lambda a: p.ring.all_reduce([a])[0]
             self.loss, self.d_emb = reduce(self.loss), reduce(self.d_emb)
             self.d_head = [reduce(a) for a in self.d_head]
             for acc in tree_leaves(self.d_post):
-                acc.copy_(reduce(acc))
-            for acc in tree_leaves(d_main):
                 acc.copy_(reduce(acc))
 
         d_pro = tree_unflatten(self.pro, torch.autograd.grad(
@@ -639,10 +753,11 @@ class _UnitGrads:
 
     def main_grads(self):
         """The hosted chunks' sums as gradients of the stacked main-group
-        leaves, in f32: per leaf, one autograd pass over the views (unbind,
-        the tp blocks' slices) that cut the chunks' blocks from it, whose
-        sums are freed once it is built (one leaf's size above the sums at
-        a time); rows of chunks this process does not host are zero."""
+        leaves the process holds, in f32: per leaf, one autograd pass over
+        the views (unbind, the tp blocks' slices) that cut the chunks'
+        blocks from it, whose sums are freed once it is built (one leaf's
+        size above the sums at a time).  In process every rank's rows are
+        there; on a ring hosting one rank, the process's rows alone."""
         leaves = list(tree_leaves(self.main))
         views = [[] for _ in leaves]
         sums = [[] for _ in leaves]
@@ -969,13 +1084,15 @@ def value_and_grad(loss_fn: Callable) -> Callable:
 def _reduce_tp_regions(p: _Plan, grads):
     """Under a tp group that hosts one rank per process: the main group's
     gradients of the leaves inside tensor-parallel regions summed over
-    the axis (a sharded leaf's rank holds its block's gradient and zeros,
-    a replicated one its rank's share); the norms outside the regions and
-    everything outside the stages have their whole gradient on every
-    rank already."""
+    the axis (a replicated leaf's rank holds its share, such as the KV
+    heads its q heads read where the axis does not divide them; a cut
+    leaf's rank, with whole parameters, its block's gradient and zeros).
+    A leaf the process holds as its tp rank's block has its whole
+    gradient already, and so do the norms outside the regions and
+    everything outside the stages."""
     main = grads["groups"][p.main.name]
     for path, g in tree_items(main):
-        if path.split("/")[1] in _TP_REGIONS:
+        if path.split("/")[1] in _TP_REGIONS and not (p.tp_sharded and p.tp_cut[path]):
             g.copy_(p.tp_group.all_reduce([g])[0])
     return grads
 
@@ -991,8 +1108,11 @@ def make_terapipe_value_and_grad(model: Model, tcfg: TeraPipeConfig, seq_len: in
     :class:`~repro_torch.launch.mesh.Mesh` with ``pipe`` and optional
     ``tp`` and ``data`` axes; ``groups``: the process's transport per axis
     (``distributed.transport.mesh_groups``), every rank in process by
-    default.  With a data axis, each hosted data rank's loss and gradients
-    are computed in turn on its rows and then summed by the data group.  An
+    default.  On a ring that hosts one rank per process the function takes
+    and returns the process's shard (:func:`shard_params` of
+    ``vg.plan.shard_layout(params)``).  With a data axis, each hosted data
+    rank's loss and gradients are computed in turn on its rows and then
+    summed by the data group.  An
     explicit schedule's function keeps, as ``residual_peak``, the most
     saved units one rank held in its last call.  Every function carries its
     ``plan`` (slices, schedule assignment, tick table), which the audits
@@ -1029,6 +1149,25 @@ def make_terapipe_value_and_grad(model: Model, tcfg: TeraPipeConfig, seq_len: in
 
     vg.plan = p
     return vg
+
+
+def shard_params(params, layout):
+    """The process's shard of the whole tree ``params``: per leaf its block
+    of ``layout`` (:meth:`_Plan.shard_layout`), each in storage of its own
+    and a leaf of its own (requiring grad where the whole leaf does); a
+    leaf held whole is the leaf itself.  ``layout`` None: ``params``."""
+    if layout is None:
+        return params
+
+    def leaf(a, ls):
+        b = ls.mine
+        return a if b.whole else b.cut(a.detach()).requires_grad_(a.requires_grad)
+    return tree_map(leaf, params, layout)
+
+
+def full_shapes(layout) -> Any:
+    """The whole shape of every leaf of ``layout``, a tree of ``torch.Size``."""
+    return tree_map(lambda ls: torch.Size(ls.shape), layout)
 
 
 def make_gpipe_loss(model: Model, *, n_microbatches: int, seq_len: int,

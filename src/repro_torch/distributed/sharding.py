@@ -173,3 +173,95 @@ def local_shard_tree(tree: Any, pspecs: Any, mesh: Mesh, coord: Mapping[str, int
     """:func:`local_shard` over a tree of tensors and the matching tree of
     :class:`PartitionSpec` (or logical-axis tuples already mapped)."""
     return map_specs(lambda spec, t: local_shard(t, spec, mesh, coord), pspecs, tree)
+
+
+# ------------------------------------------------ one process's blocks
+class Block:
+    """Where one rank's part of a leaf lies in the whole leaf: ``rows``, the
+    ranges ``(lo, hi)`` of dim 0 it holds, in order and concatenated
+    (``None``: the whole dim), and ``cuts``, per later dim ``(start,
+    stop)`` or ``None`` (whole).  A whole leaf is ``Block()``."""
+
+    __slots__ = ("rows", "cuts")
+
+    def __init__(self, rows: Optional[Sequence[Tuple[int, int]]] = None,
+                 cuts: Sequence[Optional[Tuple[int, int]]] = ()):
+        self.rows = None if rows is None else tuple((int(lo), int(hi)) for lo, hi in rows)
+        self.cuts = tuple(None if c is None else (int(c[0]), int(c[1])) for c in cuts)
+
+    @property
+    def whole(self) -> bool:
+        return self.rows is None and not any(self.cuts)
+
+    def shape(self, full: Sequence[int]) -> Tuple[int, ...]:
+        """The block's shape within a leaf of shape ``full``."""
+        out = list(full)
+        if self.rows is not None:
+            out[0] = sum(hi - lo for lo, hi in self.rows)
+        for d, c in enumerate(self.cuts, start=1):
+            if c is not None:
+                out[d] = c[1] - c[0]
+        return tuple(out)
+
+    def _index(self, lo: int, hi: int) -> tuple:
+        return (slice(lo, hi),) + tuple(slice(None) if c is None else slice(*c)
+                                        for c in self.cuts)
+
+    def cut(self, full: torch.Tensor) -> torch.Tensor:
+        """The block of the whole leaf ``full``, in storage of its own (a
+        view would keep the whole leaf alive); a whole block is ``full``."""
+        if self.whole:
+            return full
+        rows = self.rows if self.rows is not None else ((0, full.shape[0]),)
+        parts = [full[self._index(lo, hi)] for lo, hi in rows] or [full[self._index(0, 0)]]
+        return parts[0].clone() if len(parts) == 1 else torch.cat(parts)
+
+    def place(self, full: torch.Tensor, block: torch.Tensor) -> None:
+        """Write ``block`` into its place in ``full``."""
+        rows = self.rows if self.rows is not None else ((0, full.shape[0]),)
+        off = 0
+        for lo, hi in rows:
+            full[self._index(lo, hi)] = block[off:off + hi - lo]
+            off += hi - lo
+
+    def astuple(self) -> tuple:
+        """``(rows, cuts)``, plain data: ``Block(*b.astuple())`` is ``b``."""
+        return self.rows, self.cuts
+
+    def __repr__(self) -> str:
+        return f"Block(rows={self.rows}, cuts={self.cuts})"
+
+
+class LeafShards:
+    """How the ranks of a world (``world_size`` processes) hold one leaf of
+    shape ``shape``: ``blocks[w]`` is world rank ``w``'s :class:`Block`
+    (``blocks`` ``None``: every rank holds the leaf whole), ``rank`` this
+    process's world rank, and ``owned`` whether this process owns its block
+    for a sum over the world: rank 0 of the axes the block is replicated
+    on, so that every element is counted once.  Not a tuple: the tree
+    functions take it as a leaf."""
+
+    __slots__ = ("shape", "blocks", "rank", "owned")
+
+    def __init__(self, shape=None, blocks: Optional[Sequence[Block]] = None, rank: int = 0,
+                 owned: bool = True):
+        self.shape = None if shape is None else tuple(int(d) for d in shape)
+        self.blocks = None if blocks is None else tuple(blocks)
+        self.rank, self.owned = rank, owned
+
+    @property
+    def whole(self) -> bool:
+        """Every rank holds the whole leaf."""
+        return self.blocks is None or all(b.whole for b in self.blocks)
+
+    @property
+    def mine(self) -> Block:
+        return Block() if self.blocks is None else self.blocks[self.rank]
+
+    def __repr__(self) -> str:
+        return (f"LeafShards(shape={self.shape}, rank {self.rank}, owned={self.owned}, "
+                f"{'whole' if self.whole else f'{len(self.blocks)} blocks'})")
+
+
+#: a leaf every rank holds whole, rank 0 owning it (a step count)
+REPLICATED = LeafShards()

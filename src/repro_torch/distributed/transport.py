@@ -22,6 +22,11 @@ rank; here each process hosts one, its own:
 over a :class:`~repro_torch.launch.mesh.Mesh`, once the process group
 exists (:func:`init_process_group`: gloo for CPU tensors, NCCL for CUDA
 ones).  Axes of size 1 get no group (the executor hosts their one rank).
+Its ``"world"`` entry is a :class:`DistGroup` over every process of the
+run, which the stage-sharded state needs beside the axes: the clip norm's
+sum (``all_reduce``), a checkpoint's ``gather`` of every process's blocks
+on rank 0 (``dist.gather``: a sum would turn a stored ``-0.0`` into
+``+0.0``) and its ``barrier``.
 Every training schedule runs on a ring hosting one rank per process: the
 explicit-backward ones by their backward units, the forward-only ones by
 the transposed tick table (``core/pipeline.py``), whose sends and receives
@@ -30,7 +35,8 @@ all sit in the tick interpreter, none inside an autograd backward.
 :class:`ThreadRing` is the in-process stand-in for one pipe rank per
 process: K threads, each hosting one rank behind ``DistRing``'s interface
 (``ranks == (k,)``, ``shift``, ``all_reduce``), so the path that crosses
-processes runs in one process, on the CPU or on one card.
+processes runs in one process, on the CPU or on one card.  A
+:class:`ThreadRank` is its own world (``gather``, ``barrier``).
 """
 from __future__ import annotations
 
@@ -88,12 +94,18 @@ class _Region(torch.autograd.Function):
 
 
 class DistGroup:
-    """One process's rank of a mesh axis: ``ranks == (rank,)``,
-    ``all_reduce([x]) -> [sum over the axis]``, ``region(x) -> [x]``."""
+    """One process's rank of a mesh axis, or of the world: ``ranks ==
+    (rank,)``, ``all_reduce([x]) -> [sum over the group]``, ``region(x) ->
+    [x]``, ``gather(x, dst)`` (the group's values in rank order on its rank
+    ``dst``, ``None`` elsewhere; every value of ``x``'s shape and dtype)
+    and ``barrier()``.  ``device``: where its small tensors live (the CPU
+    under gloo, the process's GPU under NCCL)."""
 
-    def __init__(self, pg, size: int, rank: int):
+    def __init__(self, pg, size: int, rank: int, device: Optional[torch.device] = None):
         self.pg, self.size, self.rank = pg, size, rank
         self.ranks = (rank,)
+        self.device = device
+        self.members = dist.get_process_group_ranks(pg)
 
     def all_reduce(self, values: List[torch.Tensor]) -> List[torch.Tensor]:
         assert len(values) == 1, len(values)
@@ -101,6 +113,15 @@ class DistGroup:
 
     def region(self, x: torch.Tensor) -> List[torch.Tensor]:
         return [_Region.apply(x, self.pg)]
+
+    def gather(self, x: torch.Tensor, dst: int = 0) -> Optional[List[torch.Tensor]]:
+        x = x.detach().contiguous()
+        out = [torch.empty_like(x) for _ in range(self.size)] if self.rank == dst else None
+        dist.gather(x, out, dst=self.members[dst], group=self.pg)
+        return out
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.pg)
 
     def __repr__(self) -> str:
         return f"DistGroup(rank {self.rank} of {self.size})"
@@ -113,8 +134,8 @@ class DistRing(DistGroup):
     live (the CPU under gloo, the process's GPU under NCCL)."""
 
     def __init__(self, pg, size: int, rank: int, members: List[int], device: torch.device):
-        super().__init__(pg, size, rank)
-        self.members, self.device = list(members), device
+        super().__init__(pg, size, rank, device)
+        self.members = list(members)
 
     def _batch(self, ops) -> None:
         """``(op, tensor, global peer)`` triples as one batch, waited on."""
@@ -154,7 +175,8 @@ class DistRing(DistGroup):
 def mesh_groups(mesh: Mesh, device: Optional[torch.device] = None) -> Dict[str, DistGroup]:
     """The process's group per mesh axis of size > 1 (``pipe`` a
     :class:`DistRing`, ``tp`` and ``data`` a :class:`DistGroup`), from a
-    ``DeviceMesh`` over the world's ranks in the mesh's (row-major) order.
+    ``DeviceMesh`` over the world's ranks in the mesh's (row-major) order,
+    and ``"world"``, a :class:`DistGroup` over the default process group.
     The world size must be ``mesh.size``."""
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -174,8 +196,41 @@ def mesh_groups(mesh: Mesh, device: Optional[torch.device] = None) -> Dict[str, 
         if axis == "pipe":
             out[axis] = DistRing(pg, size, rank, dist.get_process_group_ranks(pg), device)
         else:
-            out[axis] = DistGroup(pg, size, rank)
+            out[axis] = DistGroup(pg, size, rank, device)
+    out["world"] = DistGroup(dist.group.WORLD, world, dist.get_rank(), device)
     return out
+
+
+class _Gate:
+    """A barrier of ``n`` threads (``threading.Barrier``'s ``wait`` and
+    ``abort``) whose released waiters return even when it breaks right
+    after: a rank that failed after the ring's last collective does not
+    turn the others' completed wait into an error."""
+
+    def __init__(self, n: int):
+        self.n, self.count, self.gen, self.broken = n, 0, 0, False
+        self.cond = threading.Condition()
+
+    def wait(self, timeout: float) -> None:
+        with self.cond:
+            if self.broken:
+                raise threading.BrokenBarrierError
+            gen = self.gen
+            self.count += 1
+            if self.count == self.n:
+                self.count, self.gen = 0, gen + 1
+                self.cond.notify_all()
+                return
+            if not self.cond.wait_for(lambda: self.gen != gen or self.broken, timeout):
+                self.broken = True
+                self.cond.notify_all()
+            if self.gen == gen:
+                raise threading.BrokenBarrierError
+
+    def abort(self) -> None:
+        with self.cond:
+            self.broken = True
+            self.cond.notify_all()
 
 
 class RingBroken(RuntimeError):
@@ -198,7 +253,8 @@ class ThreadRing:
     error breaks the ring, so the other ranks raise :class:`RingBroken`
     rather than wait.  ``all_reduce`` sums the ranks' values in rank order
     (a bit-reproducible sum) and hands every rank the one result, which no
-    rank may write into.
+    rank may write into; ``gather`` hands rank ``dst`` every rank's value
+    (a copy), ``barrier`` waits for every rank.
 
     On a card the threads share the current device and its default stream,
     so a value a thread enqueued is ready, in stream order, for the thread
@@ -209,7 +265,7 @@ class ThreadRing:
     def __init__(self, size: int, timeout: float = 120.0):
         self.size, self.timeout = size, timeout
         self._boxes = {(k, step): queue.Queue() for k in range(size) for step in (1, -1)}
-        self._barrier = threading.Barrier(size)
+        self._barrier = _Gate(size)
         self._slots: List[Any] = [None] * size
         self._broken = threading.Event()
 
@@ -251,12 +307,34 @@ class ThreadRing:
 
 
 class ThreadRank:
-    """One thread's rank of a :class:`ThreadRing`: ``ranks == (rank,)``."""
+    """One thread's rank of a :class:`ThreadRing`: ``ranks == (rank,)``;
+    the ring is the run's whole world."""
+
+    device = None
 
     def __init__(self, ring: ThreadRing, rank: int):
         self.ring, self.size, self.rank = ring, ring.size, rank
         self.ranks = (rank,)
         self._count = {1: 0, -1: 0}
+
+    def _wait(self, what: str) -> None:
+        try:
+            self.ring._barrier.wait(self.ring.timeout)
+        except threading.BrokenBarrierError:
+            self.ring._fail()
+            raise RingBroken(f"rank {self.rank}: {what} broken (a rank failed or timed "
+                             f"out)") from None
+
+    def barrier(self) -> None:
+        self._wait("barrier")
+
+    def gather(self, x: torch.Tensor, dst: int = 0) -> Optional[List[torch.Tensor]]:
+        ring = self.ring
+        ring._slots[self.rank] = x.detach().clone()
+        self._wait("gather")                          # every rank's value is in
+        out = list(ring._slots) if self.rank == dst else None
+        self._wait("gather")                          # rank dst has taken them
+        return out
 
     def shift(self, sent: List[Optional[torch.Tensor]], step: int = 1) -> List[Optional[torch.Tensor]]:
         assert len(sent) == 1 and step in (1, -1), (len(sent), step)
@@ -291,20 +369,15 @@ class ThreadRank:
         assert len(values) == 1, len(values)
         ring = self.ring
         ring._slots[self.rank] = values[0]
-        try:
-            ring._barrier.wait(ring.timeout)          # every rank's value is in
-            if self.rank == 0:
-                total = ring._slots[0]
-                for v in ring._slots[1:]:
-                    total = total + v
-                ring._slots[0] = total
-            ring._barrier.wait(ring.timeout)          # the sum is in slot 0
+        self._wait("all_reduce")                      # every rank's value is in
+        if self.rank == 0:
             total = ring._slots[0]
-            ring._barrier.wait(ring.timeout)          # every rank has read it
-        except threading.BrokenBarrierError:
-            ring._fail()
-            raise RingBroken(f"rank {self.rank}: all_reduce broken (a rank failed or timed "
-                             f"out)") from None
+            for v in ring._slots[1:]:
+                total = total + v
+            ring._slots[0] = total
+        self._wait("all_reduce")                      # the sum is in slot 0
+        total = ring._slots[0]
+        self._wait("all_reduce")                      # every rank has read it
         return [total]
 
     def __repr__(self) -> str:

@@ -85,7 +85,8 @@ from repro_torch.distributed.sharding import (NamedSharding, batch_shardings, lo
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import hlo_analysis as ha
 from repro_torch.launch import train as train_launch
-from repro_torch.launch.instruments import Account, Collectives, RecordingGroup, RecordingRing
+from repro_torch.launch.instruments import (BLOCK, Account, Collectives, RecordingGroup,
+                                           RecordingRing)
 from repro_torch.launch.mesh import Mesh, data_axes, make_production_mesh, make_terapipe_mesh
 from repro_torch.launch.steps import (abstract_caches, abstract_init, gspmd_shardings,
                                       make_decode_step, make_prefill_step, make_train_step)
@@ -308,13 +309,14 @@ def trace_gspmd(cfg, shape: ShapeSpec, mesh: Mesh, *, daxes=None, rules=None, fs
 
 # -------------------------------------------------------------- terapipe
 def trace_terapipe(cfg, shape: ShapeSpec, mesh: Mesh, tcfg: TeraPipeConfig, *,
-                   per_device: bool = True) -> dict:
+                   per_device: bool = True, block: int = BLOCK) -> dict:
     """The pipelined train step (``launch/train.py::train_step`` over
     ``make_terapipe_value_and_grad``) on meta.  ``per_device``: one data
     rank and one tp rank (recording groups hosting one rank), the largest
     pipe rank's numbers, the state at each device's share of its
     placement; else the whole process, every rank it hosts on one card,
-    as a single-card run holds them."""
+    as a single-card run holds them.  ``block``: the account's allocation
+    granularity in bytes (1: each tensor's own bytes)."""
     if shape.kind != "train":
         raise ValueError("terapipe mode traces the train step")
     K, tp = mesh.get("pipe"), mesh.get("tp")
@@ -348,7 +350,7 @@ def trace_terapipe(cfg, shape: ShapeSpec, mesh: Mesh, tcfg: TeraPipeConfig, *,
     opt_share = [1.0] + share + share
     batch = input_specs(cfg, shape)
     kops.reset_meta()
-    acct = Account(plan)
+    acct = Account(plan, block)
     acct.register_state(state["params"], shares)
     acct.register_state(state["opt_state"], lambda i: opt_share[i])
     acct.register_state(batch, (lambda i: 1.0 / data) if per_device else None)

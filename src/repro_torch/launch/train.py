@@ -35,17 +35,23 @@ the pipelined modes run on ``Mesh(data=n // pipe, pipe=min(4, n))`` over
 the ``n`` processes, each hosting one rank of each axis
 (``distributed/transport.py``): NCCL on ``cuda:LOCAL_RANK``, or gloo on
 the CPU with ``--device cpu``.  Every rank builds the same parameters from
-``--seed``, takes its data rank's rows of each batch, and applies the same
-AdamW update to the summed gradients; at the end a checksum of the
-parameters must be equal on every rank.  ``--dp-plan`` plans on rank 0,
-which hands the slices to the others; only rank 0 prints.  Refused across
-processes, each with its reason: ``--mode gspmd`` (the reference builds no
-mesh for it) and the checkpoint options (``--checkpoint-dir``,
-``--simulate-failure-at``)::
+``--seed``, keeps its shard of them and drops the rest
+(``core/pipeline.py::shard_params``: the layer rows of its pipe rank's
+chunks, with the embedding, the head, the final norm and the pre- and
+post-groups whole), creates the AdamW moments on that shard, and takes its
+data rank's rows of each batch.  The clip norm is summed over the world
+(``optim/adamw.py::world_sq_norm``), so the replicated leaves get the same
+update on every rank; at the end their checksum must be equal on every
+rank.  ``--dp-plan`` plans on rank 0, which hands the slices to the
+others; only rank 0 prints.  ``--mode gspmd`` is refused across processes
+(the reference builds no mesh for it)::
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
         --arch gpt3-1b --use-kernel --mode terapipe --token-slices 8 \
-        --steps 3 --batch 4 --seq 2048
+        --steps 3 --batch 4 --seq 2048 --checkpoint-dir ck --checkpoint-every 50
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch gpt3-1b --use-kernel --mode terapipe --token-slices 8 \
+        --steps 6 --batch 4 --seq 2048 --checkpoint-dir ck --resume
 
 Fault tolerance, the reference's supervisor (``repro/launch/train.py``,
 PR 3's contract), in every mode and schedule:
@@ -63,6 +69,20 @@ PR 3's contract), in every mode and schedule:
   fault to inject), since they keep a second copy of the moments alive
   across the update.  A fault that repeats at the same step after a
   restore is raised: replaying cannot cure it.
+
+Across processes the supervisor runs on every rank together (``main``'s
+loop, which a caller hosting the ranks itself, such as ``ThreadRing``'s
+threads, drives the same way through ``main(argv, groups=...)``).  Each
+step's fault flag is summed over the world before the step counts, so a
+fault on any rank sends every rank to
+the same checkpoint (rank 0's latest step, broadcast), or every rank to
+its rescue references, or every rank to the "cannot retry" raise.  The
+checkpoint is the reference's one ``proc0.npz`` of whole leaves, gathered
+on rank 0 and cut again on restore, so it restores into any count of
+processes and into the JAX package.  A fault raised inside a collective
+(a dead NCCL peer, a broken ``ThreadRing``) cannot be agreed on: it ends
+the run with an error on every rank, and the recovery from it is
+``torchrun --max-restarts N`` with ``--resume``.
 """
 from __future__ import annotations
 
@@ -81,7 +101,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.cost_model import H100, TPU_V5E, AnalyticCostModel, HardwareSpec
 from repro_torch.core.dp import DPResult, ensure_executable, optimal_slicing, plan_schedule_info
 from repro_torch.core.pipeline import (TeraPipeConfig, make_terapipe_value_and_grad,
-                                       value_and_grad)
+                                       shard_params, value_and_grad)
 from repro_torch.core.schedule import SlicingScheme
 from repro_torch.core.schedules import (KIND_BWD, KIND_BWD_INPUT, KIND_BWD_WEIGHT, REGISTRY,
                                         check_virtual_stages, schedule_help, schedule_names)
@@ -90,8 +110,10 @@ from repro_torch.data.pipeline import DataPipeline, SyntheticSource
 from repro_torch.distributed import transport
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import build_model
-from repro_torch.optim.adamw import adamw, apply_updates, cosine_schedule
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.distributed.sharding import REPLICATED
+from repro_torch.optim.adamw import (AdamWState, adamw, apply_updates, cosine_schedule,
+                                     world_sq_norm)
+from repro_torch.tree import jax_leaves, tree_leaves, tree_map
 
 #: pipeline ranks: the reference's ``pipe = min(4, n_devices)`` on any host
 #: with four devices or more; on one card the ranks are virtual
@@ -110,17 +132,12 @@ def launch_mesh(n: int) -> Mesh:
 
 
 def check_processes(args, n: int) -> None:
-    """What the launcher refuses with ``n`` > 1 processes, each with the
-    reason the reference gives."""
-    if n <= 1:
-        return
-    if args.mode == "gspmd":
+    """What the launcher refuses with ``n`` > 1 processes, with the reason
+    the reference gives."""
+    if n > 1 and args.mode == "gspmd":
         raise ValueError("--mode gspmd runs one process: the reference's launcher builds no "
                          "mesh for it (repro/launch/train.py:202), so its step is one "
                          "device's; use --mode terapipe or gpipe across processes")
-    if args.checkpoint_dir or args.simulate_failure_at >= 0:
-        raise ValueError("--checkpoint-dir / --simulate-failure-at run one process: "
-                         "checkpoints across processes are not ported yet (ROADMAP Queue 1)")
 
 
 def plan_slices(cfg, seq: int, n_ranks: int, hw: HardwareSpec, *, microbatches: int = 1,
@@ -258,21 +275,24 @@ def _start_processes(args) -> tuple:
     return mesh, transport.mesh_groups(mesh, device), device
 
 
-def _check_ranks_agree(params) -> None:
-    """Raises unless every rank's checksum of the parameters (the sum and
-    the sum of squares in float64, leaf by leaf in tree order) is rank
-    0's: every rank must have applied the same updates."""
+def _check_ranks_agree(params, layout, world) -> None:
+    """Raises on every rank unless every rank's checksum of the leaves
+    every rank holds whole (the sum and the sum of squares in float64,
+    leaf by leaf in tree order) is rank 0's: every rank must have applied
+    the same updates to them."""
     mine = torch.zeros(2, dtype=torch.float64, device=next(iter(tree_leaves(params))).device)
-    for a in tree_leaves(params):
-        a = a.detach().double()
-        mine[0] += a.sum()
-        mine[1] += (a * a).sum()
-    every = [torch.empty_like(mine) for _ in range(torch.distributed.get_world_size())]
-    torch.distributed.all_gather(every, mine)
-    differ = [r for r, c in enumerate(every) if not torch.equal(c, every[0])]
-    if differ:
-        raise RuntimeError(f"ranks {differ} ended with parameters unlike rank 0's "
-                           f"(checksums {[c.tolist() for c in every]})")
+    for a, ls in zip(tree_leaves(params), tree_leaves(layout)):
+        if ls.whole:
+            a = a.detach().double()
+            mine[0] += a.sum()
+            mine[1] += (a * a).sum()
+    every = world.gather(mine, dst=0)
+    differ = [r for r, c in enumerate(every or []) if not torch.equal(c, every[0])]
+    flag = torch.tensor(len(differ), dtype=torch.int64, device=mine.device)
+    if int(world.all_reduce([flag])[0]):
+        raise RuntimeError("ranks ended with replicated parameters unlike rank 0's"
+                           + (f": ranks {differ}, checksums {[c.tolist() for c in every]}"
+                              if every else ""))
 
 
 def train_step(vg_fn, opt, state: dict, batch) -> torch.Tensor:
@@ -289,14 +309,19 @@ def train_step(vg_fn, opt, state: dict, batch) -> torch.Tensor:
     return loss
 
 
-def main(argv=None, history: Optional[list] = None, out: Optional[dict] = None) -> float:
+def main(argv=None, history: Optional[list] = None, out: Optional[dict] = None,
+         groups: Optional[dict] = None) -> float:
     """Runs the training loop and returns the final loss.  If ``history``
     is a list, each logged step appends ``{"step", "loss", "tok_s",
     "ms_per_step"}`` to it, the numbers its printed line shows.  If ``out``
     is a dict, it receives the final ``"state"`` (``{"params", "opt",
-    "step"}``, a checkpoint's tree) and the checkpoint manager's records
-    (``"checkpoints"``: one ``{"op", "step", "seconds", "bytes"}`` per save
-    and restore)."""
+    "step"}``, a checkpoint's tree; across processes this process's
+    shard), its ``"layout"`` (``None`` in one process) and the checkpoint
+    manager's records (``"checkpoints"``: one ``{"op", "step", "seconds",
+    "bytes", "file_bytes"}`` per save and restore).  ``groups``: the
+    process's groups, for a caller that hosts the ranks itself (one
+    ``ThreadRing`` rank per thread: ``{"pipe": rank}``, the launch mesh of
+    ``rank.size`` processes); by default torchrun's environment decides."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--smoke", action="store_true", help="reduced config (CPU-runnable)")
@@ -338,11 +363,21 @@ def main(argv=None, history: Optional[list] = None, out: Optional[dict] = None) 
     if args.dp_plan and args.mode != "terapipe":
         ap.error("--dp-plan plans token slices: it needs --mode terapipe")
 
-    try:
-        mesh, groups, device = _start_processes(args)
-    except ValueError as e:
-        ap.error(str(e))
-    lead = not _distributed() or torch.distributed.get_rank() == 0
+    if groups is not None:               # ranks hosted by the caller (one per thread)
+        world = groups.get("world") or groups["pipe"]
+        try:
+            check_processes(args, world.size)
+            mesh = launch_mesh(world.size)
+        except ValueError as e:
+            ap.error(str(e))
+        device = args.device
+    else:
+        try:
+            mesh, groups, device = _start_processes(args)
+        except ValueError as e:
+            ap.error(str(e))
+        world = groups["world"] if groups else None
+    lead = world is None or world.rank == 0
     say = print if lead else (lambda *a, **k: None)
 
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -353,35 +388,55 @@ def main(argv=None, history: Optional[list] = None, out: Optional[dict] = None) 
     model = build_model(cfg, device=device)
     dev = model.device
     vg_fn = build_value_and_grad(model, args, mesh, groups)
-    opt = adamw(cosine_schedule(args.lr, args.warmup, args.steps))
-    state = {"params": tree_map(lambda p: p.requires_grad_(True), model.init(args.seed))}
+    # the whole parameters once: this process's shard of them is kept, the
+    # rest dropped, and the moments are made on the shard alone
+    full = tree_map(lambda p: p.requires_grad_(True), model.init(args.seed))
+    plan = getattr(vg_fn, "plan", None)
+    layout = plan.shard_layout(full) if plan is not None else None
+    whole = meta_target(full)
+    opt = adamw(cosine_schedule(args.lr, args.warmup, args.steps),
+                sq_norm_reduce=world_sq_norm(layout, world) if layout is not None else None)
+    state = {"params": shard_params(full, layout)}
+    del full
     state["opt_state"] = opt.init(state["params"])
     data = make_data(cfg, args.batch, args.seq, args.seed)
 
-    ckpt = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir else None
-    # a checkpoint's tree carries the reference's keys
+    ckpt = CheckpointManager(args.checkpoint_dir, world=world) if args.checkpoint_dir else None
+    # a checkpoint's tree carries the reference's keys; its target holds
+    # the whole leaves' shapes (meta), its layout how the processes hold them
     tree = lambda step: {"params": state["params"], "opt": state["opt_state"], "step": step}
-    target = {"params": meta_target(state["params"]), "opt": meta_target(state["opt_state"]),
-              "step": 0}
+    target = {"params": whole, "opt": opt.init(whole), "step": 0}
+    ck_layout = None if layout is None else {
+        "params": layout, "opt": AdamWState(REPLICATED, layout, layout), "step": REPLICATED}
 
     def restore() -> int:
         state.clear()                  # the live state goes first: no second copy
-        got = ckpt.restore(target=target, device=dev)
+        got = ckpt.restore(target=target, device=dev, layout=ck_layout)
         state["params"] = tree_map(lambda p: p.requires_grad_(True), got["params"])
         state["opt_state"] = got["opt"]
-        _print_io(ckpt, f"restored step {int(got['step'])}")
+        if lead:
+            _print_io(ckpt, f"restored step {int(got['step'])}")
         return int(got["step"])
+
+    def faults_anywhere(mine: bool) -> int:
+        """The count of ranks that faulted at this step (this one alone in
+        one process)."""
+        if world is None:
+            return int(mine)
+        flag = torch.tensor(int(mine), dtype=torch.int64, device=world.device)
+        return int(world.all_reduce([flag])[0])
 
     step = 0
     if ckpt and args.resume and ckpt.latest_step() is not None:
         step = restore()
-        print(f"[resume] restored step {step}")
+        say(f"[resume] restored step {step}")
     rescue = ckpt is None and args.simulate_failure_at >= 0
     failed_once, faulted = False, set()
     loss = None
     t_last, tok_count, steps_since = time.time(), 0, 0
     while step < args.steps:
         held = (state["params"], state["opt_state"]) if rescue else None
+        fault = None
         try:
             batch = {k: torch.from_numpy(a).to(dev) for k, a in data.batch_at(step).items()}
             step_loss = train_step(vg_fn, opt, state, batch)
@@ -391,25 +446,30 @@ def main(argv=None, history: Optional[list] = None, out: Optional[dict] = None) 
                 failed_once = True
                 raise RuntimeError("injected fault (simulate-failure-at)")
         except Exception as e:  # noqa: BLE001 -- the supervisor: restore and continue
-            print(f"[fault] step {step}: {e}", file=sys.stderr)
+            fault = e
+            print(f"[fault] step {step}" + ("" if world is None else f", rank {world.rank}")
+                  + f": {e}", file=sys.stderr)
             if not str(e).startswith("injected fault"):
                 traceback.print_exc()
+        # every rank learns of a fault anywhere before the step counts
+        if faults_anywhere(fault is not None):
+            fault = fault or RuntimeError(f"step {step}: another rank faulted")
             if step in faulted:
-                raise
+                raise fault
             faulted.add(step)
             if ckpt and ckpt.latest_step() is not None:
                 step = restore()
-                print(f"[fault] restored checkpoint at step {step}")
+                say(f"[fault] restored checkpoint at step {step}")
                 continue
             if ckpt:
                 print("[fault] no checkpoint saved yet and the faulted step has replaced "
                       "the state; cannot retry", file=sys.stderr)
-                raise
+                raise fault
             if failed_once and held is not None:
                 state["params"], state["opt_state"] = held
-                print("[fault] no checkpoint dir; retrying step with rescue references")
+                say("[fault] no checkpoint dir; retrying step with rescue references")
                 continue
-            raise
+            raise fault
         del held
         loss = step_loss
         tok_count += batch["tokens"].numel()
@@ -426,25 +486,45 @@ def main(argv=None, history: Optional[list] = None, out: Optional[dict] = None) 
                 f"{rec['ms_per_step']:.1f} ms/step", flush=True)
             t_last, tok_count, steps_since = time.time(), 0, 0
         if ckpt and (step % args.checkpoint_every == 0 or step == args.steps):
-            _print_io(ckpt, f"saved {ckpt.save(step, tree(step))}")
+            saved = ckpt.save(step, tree(step), layout=ck_layout)
+            if lead:
+                _print_io(ckpt, f"saved {saved}")
     if out is not None:
         out["state"] = tree(step)
+        out["layout"] = ck_layout
         out["checkpoints"] = list(ckpt.log) if ckpt else []
     final = float(loss) if loss is not None else float("nan")
-    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
-    where = f"{dev}" if mesh is None else f"{mesh.size} processes on {mesh}, {dev.type}"
+    n_params = sum(a.numel() for a in tree_leaves(whole))
+    resident = sum(a.numel() * a.element_size() for a in jax_leaves(
+        {"params": state["params"], "opt": state["opt_state"]}))
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    gib = lambda xs: (f"{xs[0] / 2**30:.3f}" if len({f"{x / 2**30:.3f}" for x in xs}) == 1
+                      else "(" + ", ".join(f"{x / 2**30:.3f}" for x in xs) + ")")
+    where = f"{dev}, {resident / 2**30:.3f} GiB resident" + (
+        "" if peak is None else f", peak {peak / 2**30:.2f} GiB")
     if mesh is not None:
-        _check_ranks_agree(state["params"])
+        _check_ranks_agree(state["params"], layout, world)
+        every = world.gather(torch.tensor([float(resident), float(peak or 0)], dtype=torch.float64,
+                                          device=world.device or "cpu"), dst=0) or []
+        every = [e.tolist() for e in every]
+        where = (f"{mesh.size} processes on {mesh}, {dev.type}, resident state (params + AdamW) "
+                 f"{mesh.size} x {gib([r for r, _ in every])} GiB" if every else "")
+        if every and peak is not None:
+            where += f", peaks {gib([p for _, p in every])} GiB"
     say(f"done: {args.steps} steps, final loss {final:.4f} "
         f"({cfg.name}, {n_params:,} parameters, {where}, mode {args.mode})")
     return final
 
 
 def _print_io(ckpt: CheckpointManager, what: str) -> None:
-    """The ``[ckpt]`` line of the manager's last save or restore."""
+    """The ``[ckpt]`` line of the manager's last save or restore: this
+    process's share and the file's size (the same across processes in one
+    process)."""
     rec = ckpt.log[-1]
-    print(f"[ckpt] {what} ({rec['bytes'] / 2**30:.3f} GiB in {rec['seconds']:.2f} s, "
-          f"{rec['bytes'] / rec['seconds'] / 1e9:.2f} GB/s)", flush=True)
+    share = "" if ckpt.world is None else (
+        f"this rank's share {rec['bytes'] / 2**30:.3f} GiB of ")
+    print(f"[ckpt] {what} ({share}{rec['file_bytes'] / 2**30:.3f} GiB in {rec['seconds']:.2f} s, "
+          f"{rec['file_bytes'] / rec['seconds'] / 1e9:.2f} GB/s)", flush=True)
 
 
 if __name__ == "__main__":

@@ -15,6 +15,13 @@ tensors on the parameters' device, so an update never waits on the host.
 pass (the reference maps whole trees one after another): each element sees
 the same operations in the same order, and the temporaries are one leaf's,
 not one model's.
+
+Over a sharded state (each process the blocks it holds, parameters and
+moments alike) the clip norm is the world's: ``sq_norm_reduce`` takes the
+per-leaf squared sums of the process's gradients and returns the global
+squared norm, which every process then uses (``launch/train.py`` passes
+:func:`world_sq_norm`: each process sums the blocks it owns, and the world
+sums those).  Without it, the norm is the tree's own, as before.
 """
 from __future__ import annotations
 
@@ -57,9 +64,29 @@ def constant_schedule(lr_value: float) -> Callable:
                                    device=torch.as_tensor(step).device)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, sq_norm_reduce: Optional[Callable] = None) -> torch.Tensor:
+    """The L2 norm over every leaf of ``tree``; with ``sq_norm_reduce``,
+    the square root of what it makes of the leaves' squared sums."""
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    if sq_norm_reduce is not None:
+        return torch.sqrt(sq_norm_reduce(leaves))
     return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+def world_sq_norm(layout, world) -> Callable:
+    """``sq_norm_reduce`` of a state sharded by ``layout`` (a tree of
+    ``distributed.sharding.LeafShards`` in the gradients' structure) over
+    ``world``: the sum of the leaves this process owns, summed over the
+    world, so that each element counts once and every process gets the one
+    scalar."""
+    owned = [ls.owned for ls in tree_leaves(layout)]
+
+    def reduce(sq):
+        assert len(sq) == len(owned), (len(sq), len(owned))
+        mine = [s for s, o in zip(sq, owned) if o]
+        total = torch.sum(torch.stack(mine)) if mine else torch.zeros_like(sq[0])
+        return world.all_reduce([total])[0]
+    return reduce
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -75,9 +102,12 @@ def clip_by_global_norm(tree, max_norm: float):
 def adamw(lr: Callable | float, *, b1: float = 0.9, b2: float = 0.95,
           eps: float = 1e-8, weight_decay: float = 0.1,
           clip_norm: Optional[float] = 1.0,
-          master_weights: bool = False) -> Optimizer:
+          master_weights: bool = False,
+          sq_norm_reduce: Optional[Callable] = None) -> Optimizer:
     """master_weights=True keeps an fp32 copy in the state — use when params
-    are stored bf16 (halves weight traffic; update precision preserved)."""
+    are stored bf16 (halves weight traffic; update precision preserved).
+    ``sq_norm_reduce``: the clip norm over a sharded state (module
+    docstring)."""
     lr_fn = lr if callable(lr) else constant_schedule(lr)
 
     def init(params):
@@ -91,7 +121,7 @@ def adamw(lr: Callable | float, *, b1: float = 0.9, b2: float = 0.95,
     @torch.no_grad()
     def update(grads, state, params):
         step = state.step + 1
-        scale = (_clip_scale(global_norm(grads), clip_norm)
+        scale = (_clip_scale(global_norm(grads, sq_norm_reduce), clip_norm)
                  if clip_norm is not None else None)
         bc1 = 1 - torch.pow(b1, step.float())
         bc2 = 1 - torch.pow(b2, step.float())

@@ -4,18 +4,20 @@ through ``distributed.transport.ThreadRing`` (K threads, one rank each).
 * Every forward-only schedule (``contiguous`` with uniform and non-uniform
   slices, gpipe, ``interleaved`` V 2) on gpt3 SMOKE at K 2 and 4, and one
   case each of deepseek (MoE, with its pre-group), phi-3-vision (the patch
-  prefix), mamba2 and recurrentgemma (the post-group): every rank's loss
-  and gradients within 2e-6 of each leaf's largest magnitude of the
-  in-process run (``LocalRing``, autograd over the whole tick loop), and
-  within 2e-4 of JAX's ``value_and_grad(model.loss)`` on the same
-  parameters (f32).
+  prefix), mamba2 and recurrentgemma (the post-group): every rank, given
+  its shard of the parameters (``shard_params``), returns the gradients of
+  its blocks, each within 2e-6 of its leaf's largest magnitude of the
+  in-process run's matching block (``LocalRing``, autograd over the whole
+  tick loop), and its loss and blocks within 2e-4 of JAX's
+  ``value_and_grad(model.loss)`` on the same parameters (f32).
 * The ring itself: shifts hand each rank a copy of its predecessor's
   value, ``all_reduce`` sums in rank order (also with more threads than
   cores switching every microsecond, where the kernels' launch counter
   must lose no count), and a rank that skips a tick raises, on every
   rank, rather than hang.
-* The launcher's mesh over ``n`` processes (the reference's rule) and its
-  refusals, as plain functions, with no process group.
+* The launcher's mesh over ``n`` processes (the reference's rule), its
+  refusal of ``--mode gspmd`` and its acceptance of the checkpoint options,
+  as plain functions, with no process group.
 """
 import argparse
 import functools
@@ -31,12 +33,12 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models import build_model as jax_build_model
 from repro_torch import configs
-from repro_torch.core.pipeline import TeraPipeConfig, make_terapipe_value_and_grad
+from repro_torch.core.pipeline import TeraPipeConfig, make_terapipe_value_and_grad, shard_params
 from repro_torch.distributed.transport import RingBroken, ThreadRing
 from repro_torch.launch import train as train_launch
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import build_model
-from repro_torch.tree import jax_items, tree_items, tree_map
+from repro_torch.tree import jax_items, tree_items, tree_leaves, tree_map
 from repro_torch.weights import params_from_jax
 
 # the suite runs several workers on the same cores: one intra-op thread
@@ -108,21 +110,25 @@ def test_rank_per_thread_matches_in_process_and_jax(case):
         assert [g.name for g in vg.plan.pre] == ["dense0"]
 
     def rank_run(rank):
-        return make_terapipe_value_and_grad(model, tcfg, S, B, mesh, {"pipe": rank})(
-            params, tbatch)
+        vg = make_terapipe_value_and_grad(model, tcfg, S, B, mesh, {"pipe": rank})
+        layout = vg.plan.shard_layout(params)
+        return vg(shard_params(params, layout), tbatch), layout
 
     runs = ThreadRing(K, timeout=60).run(rank_run)
     assert len(runs) == K
-    for k, (loss, grads) in enumerate(runs):
+    for k, ((loss, grads), layout) in enumerate(runs):
         assert abs(float(loss) - float(want_loss)) <= LOCAL_REL * abs(float(want_loss)), k
         assert abs(float(loss) - jloss) < TOL, (k, float(loss), jloss)
         got = dict(tree_items(grads))
+        blocks = dict(zip(got, (ls.mine for ls in tree_leaves(layout))))
         assert got.keys() == want.keys() == jgrads.keys()
         for path, g in got.items():
             w = want[path]
-            assert g.dtype == w.dtype and g.shape == w.shape, path
-            assert float((g - w).abs().max()) <= LOCAL_REL * float(w.abs().max()), (k, path)
-            np.testing.assert_allclose(g.numpy(), np.asarray(jgrads[path]), rtol=TOL, atol=TOL,
+            wb = blocks[path].cut(w)
+            assert g.dtype == w.dtype and g.shape == wb.shape, path
+            assert float((g - wb).abs().max()) <= LOCAL_REL * float(w.abs().max()), (k, path)
+            jb = blocks[path].cut(torch.from_numpy(np.array(jgrads[path])))
+            np.testing.assert_allclose(g.numpy(), jb.numpy(), rtol=TOL, atol=TOL,
                                        err_msg=f"rank {k} {path}")
 
 
@@ -153,7 +159,8 @@ def test_thread_ring_shift_and_all_reduce():
 def test_thread_ring_and_launch_counts_under_a_short_switch_interval():
     """More threads than cores, switching every microsecond: every shift
     delivers its predecessor's value of that round, every all_reduce the
-    round's exact sum, and the kernels' launch counter loses no count."""
+    round's exact sum, every gather the round's values in rank order on
+    its rank alone, and the kernels' launch counter loses no count."""
     from repro_torch.kernels import _build
 
     K, rounds = 12, 40
@@ -169,6 +176,11 @@ def test_thread_ring_and_launch_counts_under_a_short_switch_interval():
             assert float(got) == 100 * r + (k - 1) % K, (k, r, float(got))
             total = rank.all_reduce([torch.tensor([float(r + k)])])[0]
             assert float(total) == K * r + K * (K - 1) / 2, (k, r, float(total))
+            got = rank.gather(torch.tensor([float(100 * r + k)]), dst=r % K)
+            if k == r % K:
+                assert [float(g) for g in got] == [100 * r + j for j in range(K)], (k, r)
+            else:
+                assert got is None, (k, r)
             for _ in range(50):
                 _build.count(counted)
         return True
@@ -190,7 +202,7 @@ class _SkipsATick:
 
     def __init__(self, rank, at: int):
         self.inner, self.at, self.calls = rank, at, 0
-        self.size, self.ranks = rank.size, rank.ranks
+        self.size, self.ranks, self.rank = rank.size, rank.ranks, rank.rank
 
     def shift(self, sent, step=1):
         self.calls += 1
@@ -215,7 +227,8 @@ def test_a_rank_that_skips_a_tick_raises(at):
     def rank_run(rank):
         if rank.rank == 1:
             rank = _SkipsATick(rank, at)
-        return make_terapipe_value_and_grad(model, tcfg, S, B, 2, {"pipe": rank})(params, tbatch)
+        vg = make_terapipe_value_and_grad(model, tcfg, S, B, 2, {"pipe": rank})
+        return vg(shard_params(params, vg.plan.shard_layout(params)), tbatch)
 
     t0 = time.time()
     with pytest.raises((AssertionError, TimeoutError, RuntimeError)) as err:
@@ -259,13 +272,19 @@ def _args(**kw):
 
 @pytest.mark.parametrize("kw,reason", [
     (dict(mode="gspmd"), "builds no mesh"),
-    (dict(checkpoint_dir="ck"), "checkpoints across processes"),
-    (dict(simulate_failure_at=2), "checkpoints across processes"),
+    # the checkpoint options run across processes (tests/test_torch_sharded_state.py)
+    pytest.param(dict(checkpoint_dir="ck"), None, id="kw1-checkpoints across processes"),
+    pytest.param(dict(simulate_failure_at=2), None, id="kw2-checkpoints across processes"),
 ])
 def test_launcher_refusals_across_processes(kw, reason):
+    """``--mode gspmd`` is refused with more than one process; the
+    checkpoint options are accepted there (``reason`` None)."""
     train_launch.check_processes(_args(**kw), 1)          # one process: as before
-    with pytest.raises(ValueError, match=reason):
+    if reason is None:
         train_launch.check_processes(_args(**kw), 2)
+    else:
+        with pytest.raises(ValueError, match=reason):
+            train_launch.check_processes(_args(**kw), 2)
     train_launch.check_processes(_args(mode="gpipe"), 4)
 
 
