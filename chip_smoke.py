@@ -7,12 +7,13 @@ result line):
   1. build   — compile every CUDA kernel (forward, backward, decode) from
                src/repro_torch/kernels/csrc with nvcc (sm_90a), one nvcc per
                source, all at once; print each instance's registers and
-               spills (-Xptxas -v) and its HMMA/HGMMA count (cuobjdump
-               -sass); every bf16 instance of fwd_kernel_bf16,
-               dq_kernel_bf16 and dkv_kernel_bf16 must run on the tensor
-               cores, no bf16 SIMT instance of them may remain, and the
-               hd-128 ones (the main paths') must not spill; the decode
-               kernels' registers and spills at hd 128;
+               spills (-Xptxas -v) and its HGMMA (wgmma), HMMA (mma.sync)
+               and UTMALDG (TMA load) counts (cuobjdump -sass); every bf16
+               instance of fwd_kernel_bf16 and dkv_kernel_bf16 (six head
+               dims) must run wgmma fed by TMA and no mma.sync, every one
+               of dq_kernel_bf16 mma.sync, no bf16 SIMT instance of them
+               may remain, and the hd-128 ones (the main paths') must not
+               spill; the decode kernels' registers and spills at hd 128;
   2. kernels — hold each kernel against its plain PyTorch version on the
                card, bf16 (atol/rtol 2e-2) and f32 (2e-5; with logits x30,
                1e-4 for the forward and 3e-3 for the backward): prefill O
@@ -22,8 +23,8 @@ result line):
                every stale cache tail), on a grid of serving shapes (every
                head dim 16-160, an 8-token chunk at ctx 250) and at the
                training step's own shape (B 4, l 2048, Hq = Hkv = 16, hd
-               128); two launches of decode, dQ and dK/dV must agree bit for
-               bit; the pipelined step's slices (B 4, l 256 at ctx 256 and
+               128); two launches of the forward, decode, dQ and dK/dV must
+               agree bit for bit; the pipelined step's slices (B 4, l 256 at ctx 256 and
                1792, Sk = ctx + l); qwen3-moe's GQA ratio of 16 (Hq 64 /
                Hkv 4: the forward at B 2, l 1024; dQ and dK/dV at B 1, l 256,
                ctx 256; decode at L 2048 with per-row kv_len); phase 8b's
@@ -238,8 +239,11 @@ result line):
                after warm-up, L2 flushed before each launch) beside its
                bound, its plain version and one PyTorch library call; the
                forward also at the training shape (train_ms, train_bound_ms,
-               train_library_ms); every kernel also at phase 8b's shapes
-               (each row's family_shapes);
+               train_library_ms); the forward, dQ and dK/dV also at the
+               pipelined step's last slice (B 4, l 256, ctx 1792: each
+               row's slice_shapes) and every kernel at phase 8b's shapes
+               (family_shapes); the tile walk of the forward and dK/dV
+               kernels at the training shape (kernels/tile_walk.py);
  10. profiles — one gspmd step and two pipelined steps (M 8, contiguous and
                1f1b) of gpt3-1b, and one gspmd step each of deepseek-moe-16b
                (3 layers), mamba2-2.7b (40 layers) and whisper-medium (with
@@ -299,7 +303,7 @@ from repro_torch.distributed.collectives import (bf16_compress,  # noqa: E402
                                                  int8_ef_decompress, int8_ef_init)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import CHUNK, decode_attention_kernel  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, tile_walk  # noqa: E402
 from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
                                      terapipe_attention_bwd_ref,
                                      terapipe_attention_dkv_ref,
@@ -373,8 +377,12 @@ def log(msg: str) -> None:
 
 
 # --------------------------------------------------------------- 1. build
-# the tensor-core kernels: every bf16 instance must contain HMMA (or HGMMA)
+# the tensor-core kernels: the forward and dK/dV as wgmma fed by TMA (HGMMA,
+# UTMALDG, no HMMA), dQ as mma.sync (HMMA)
 TENSOR_CORE_KERNELS = ("fwd_kernel_bf16", "dq_kernel_bf16", "dkv_kernel_bf16")
+WGMMA_KERNELS = ("fwd_kernel_bf16", "dkv_kernel_bf16")
+MMA_SYNC_KERNELS = ("dq_kernel_bf16",)
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")
 DECODE_KERNELS = ("decode_chunk_kernel", "decode_merge_kernel")
 MAIN_PATH_HD = 128          # gpt3-1b and qwen3-0.6b: these instances must not spill
 
@@ -406,8 +414,8 @@ def _ptxas_report(log_text: str) -> dict:
     return out
 
 
-def _hmma_counts(lib: Path) -> dict:
-    """label -> number of HMMA/HGMMA instructions, from cuobjdump -sass."""
+def _sass_counts(lib: Path) -> dict:
+    """label -> {op: count} of the SASS_OPS, from cuobjdump -sass."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
@@ -416,36 +424,45 @@ def _hmma_counts(lib: Path) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = _kernel_label(m.group(1))
-            counts[fn] = 0
-        elif fn and re.search(r"\bH(?:G)?MMA\b", line):
-            counts[fn] += 1
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn:
+            m = re.search(r"\b(HGMMA|HMMA|UTMALDG)\b", line)
+            if m:
+                counts[fn][m.group(1)] += 1
     return counts
 
 
 def phase_build() -> None:
     """Builds every source; prints each kernel instance's registers, spills
-    and tensor-core instruction count; asserts that every bf16 instance of
-    the forward, dQ and dK/dV kernels runs HMMA, that no bf16 SIMT instance
-    of them remains, and that the main path's hd-128 instances do not spill."""
+    and its HGMMA / HMMA / UTMALDG counts; asserts that every bf16 instance
+    of the forward and dK/dV kernels runs wgmma fed by TMA and no mma.sync,
+    that every one of dQ runs mma.sync, that no bf16 SIMT instance of them
+    remains, and that the main path's hd-128 instances do not spill.  The
+    warp-specialised kernels' registers are ptxas's entry count (the block's
+    384 threads at 168); after setmaxnreg the consumers run at 240, the
+    producer at 24, and the spills are the whole kernel's."""
     t0 = time.time()
     libs = _build.build_all()
     log(f"[build] {len(libs)} kernels built in {time.time() - t0:.1f} s")
-    report, hmma = {}, {}
+    report, ops = {}, {}
     for name, path in libs.items():
         rep = _ptxas_report(Path(str(path) + ".log").read_text())
-        counts = _hmma_counts(path)
+        counts = _sass_counts(path)
         for fn in sorted(set(rep) | set(counts)):
-            r = rep.get(fn, {})
+            r, c = rep.get(fn, {}), counts.get(fn, {})
             log(f"[build] {name} {fn}: {r.get('regs', '?')} registers, spill stores "
                 f"{r.get('spill_stores', '?')} B, loads {r.get('spill_loads', '?')} B; "
-                f"{counts.get(fn, '?')} HMMA/HGMMA")
+                + ", ".join(f"{c.get(op, '?')} {op}" for op in SASS_OPS))
         report.update(rep)
-        hmma.update(counts)
-    want = [f"{k}<{hd}>" for k in TENSOR_CORE_KERNELS for hd in HEAD_DIMS]
-    missing = [fn for fn in want if not hmma.get(fn)]
-    if missing:
-        raise AssertionError(f"bf16 instances without tensor-core instructions: {missing}")
-    simt_bf16 = [fn for fn in hmma if fn.startswith(("fwd_kernel", "dq_kernel", "dkv_kernel"))
+        ops.update(counts)
+    bad = [f"{k}<{hd}>: {ops.get(f'{k}<{hd}>')}" for k in WGMMA_KERNELS for hd in HEAD_DIMS
+           if not (ops.get(f"{k}<{hd}>", {}).get("HGMMA") and ops[f"{k}<{hd}>"]["UTMALDG"]
+                   and ops[f"{k}<{hd}>"]["HMMA"] == 0)]
+    bad += [f"{k}<{hd}>: {ops.get(f'{k}<{hd}>')}" for k in MMA_SYNC_KERNELS for hd in HEAD_DIMS
+            if not ops.get(f"{k}<{hd}>", {}).get("HMMA")]
+    if bad:
+        raise AssertionError(f"bf16 instances off their instruction mix: {bad}")
+    simt_bf16 = [fn for fn in ops if fn.startswith(("fwd_kernel", "dq_kernel", "dkv_kernel"))
                  and "bf16" in fn and fn.split("<")[0] not in TENSOR_CORE_KERNELS]
     if simt_bf16:
         raise AssertionError(f"bf16 SIMT instances remain: {simt_bf16}")
@@ -453,8 +470,9 @@ def phase_build() -> None:
         r = report[f"{kern}<{MAIN_PATH_HD}>"]
         if r["spill_stores"] or r["spill_loads"]:
             raise AssertionError(f"{kern}<{MAIN_PATH_HD}>, on the main path, spills: {r}")
-    log(f"[build] all {len(want)} bf16 instances of {', '.join(TENSOR_CORE_KERNELS)} "
-        f"run HMMA; no bf16 SIMT instance; hd {MAIN_PATH_HD} spills 0 bytes")
+    log(f"[build] all {len(HEAD_DIMS)} head dims of {', '.join(WGMMA_KERNELS)} run HGMMA "
+        f"fed by UTMALDG and no HMMA, of {', '.join(MMA_SYNC_KERNELS)} HMMA; no bf16 SIMT "
+        f"instance; hd {MAIN_PATH_HD} spills 0 bytes")
     for kern in DECODE_KERNELS:
         for dt in ("bf16", "f32"):
             fn = f"{kern}<{dt},{MAIN_PATH_HD}>"
@@ -697,18 +715,21 @@ def phase_kernels_bwd() -> dict:
             f"f32: {TOL_F32_X30 * 30:.0e}); stale tails exactly zero")
         errs = {k: max(errs[k], worst[k]) for k in errs}
 
-    # dQ and dK/dV are deterministic: each output element written once by one
-    # block, no atomics, so two launches on the same inputs agree bit for bit
+    # the forward, dQ and dK/dV are deterministic: each output element written
+    # once by one block, no atomics, so two launches on the same inputs agree
+    # bit for bit
     for (b, l, ctx, hq, hkv, hd, sc, tail) in (TRAIN_CASES[0], GQA_CTX_CASE):
         args = _bwd_inputs(b, l, ctx, hq, hkv, hd, sc, torch.bfloat16, gen, tail) + (ctx,)
-        for name, fn in (("dQ", lambda *a: (terapipe_attention_dq(*a),)),
+        q, k, v, ctx_ = args[0], args[1], args[2], args[-1]
+        for name, fn in (("forward", lambda *a: terapipe_attention_fwd(q, k, v, ctx_)),
+                         ("dQ", lambda *a: (terapipe_attention_dq(*a),)),
                          ("dK/dV", terapipe_attention_dkv)):
             first, second = fn(*args), fn(*args)
             if not all(torch.equal(x, y) for x, y in zip(first, second)):
                 raise AssertionError(f"{name} b={b} l={l} ctx={ctx}: two launches differ")
             del first, second
-        del args
-    log("[kernels] terapipe_attention_dq and _dkv bf16: two launches bit-identical "
+        del args, q, k, v
+    log("[kernels] terapipe_attention_fwd, _dq and _dkv bf16: two launches bit-identical "
         "(training shape; GQA l=200 at ctx=100)")
 
     # the autograd Function (kernels both ways, a strided cotangent) against
@@ -3539,8 +3560,58 @@ def phase_times(errs: dict, launches: dict) -> list:
         f"{rows[0]['train_ms']:.4f} ms, bound {rows[0]['train_bound_ms']:.4f} ms, SDPA "
         f"forward {rows[0]['train_library_ms']:.4f} ms")
     del q, k, v, do, lse, delta, args, qt, kt, vt, out
+    _slice_times(rows)
     _family_times(rows)
+    walk = tile_walk.summary(TRAIN_SEQ, 0, 16, 16, 128, batch=TRAIN_BATCH)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shares = [len(d) for d in tile_walk.deal(walk["fwd_units"], sms)]
+    log(f"[times] tile walk at the training shape (kernels/tile_walk.py; forward: "
+        f"{tile_walk.FWD_BQ}-row q tiles, {tile_walk.FWD_BK}-key tiles, warpgroups of "
+        f"{tile_walk.GROUP} rows; dK/dV: {tile_walk.DKV_BK}-key units, "
+        f"{tile_walk.dkv_bq(128)}-row q tiles; each dealt to {len(shares)} persistent blocks, "
+        f"{min(shares)}-{max(shares)} units each): {walk}")
     return rows
+
+
+def _slice_times(rows: list) -> None:
+    """The forward, dQ and dK/dV at the pipelined step's last slice (B
+    TRAIN_BATCH, l TRAIN_SEQ / PIPE_SLICES at ctx TRAIN_SEQ - l over the
+    cache rows [0, ctx + l), Hq = Hkv = 16, hd 128), where the executor
+    launches them most; timed as _family_times does, SDPA with the slice's
+    bool mask as the library call; each row gets "slice_shapes"."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    row = {r["name"]: r for r in rows}
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    b, l, ctx, hq, hkv, hd = PIPE_CASES[-1][:6]
+    q, k, v, do, lse, delta = _bwd_inputs(b, l, ctx, hq, hkv, hd, 1.0, torch.bfloat16, gen,
+                                          tail=0)
+    args = (q, k, v, do, lse, delta, ctx)
+    pairs = b * hq * sum(ctx + i + 1 for i in range(l))
+    mask = (torch.arange(l, device="cuda")[:, None] + ctx
+            >= torch.arange(ctx + l, device="cuda")[None, :])
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    with torch.no_grad():
+        fwd_library = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+    out = sdpa(qt, kt, vt, attn_mask=mask)
+    gt = do.transpose(1, 2)
+    bwd_library = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+    shape = f"B={b} l={l} ctx={ctx} Sk={ctx + l} Hq={hq} Hkv={hkv} hd={hd} bf16"
+    for name, fn, ref, flops, written, library in (
+            ("terapipe_attention_fwd", lambda: terapipe_attention_fwd(q, k, v, ctx),
+             lambda: terapipe_attention_ref(q, k, v, ctx), 4 * hd * pairs, (q, lse), fwd_library),
+            ("terapipe_attention_dq", lambda: terapipe_attention_dq(*args),
+             lambda: terapipe_attention_dq_ref(*args), 6 * hd * pairs, (q,), bwd_library),
+            ("terapipe_attention_dkv", lambda: terapipe_attention_dkv(*args),
+             lambda: terapipe_attention_dkv_ref(*args), 8 * hd * pairs, (k, v), bwd_library)):
+        inputs = (q, k, v) if name == "terapipe_attention_fwd" else (q, k, v, do, lse, delta)
+        bms, by = bound_ms(flops, nbytes(*inputs, *written))
+        e = dict(shape=shape, ms=time_ms(fn), plain_ms=time_ms(ref), bound_ms=bms, bound_by=by,
+                 library_ms=library)
+        row[name].setdefault("slice_shapes", []).append(e)
+        log(f"[times] {name} ({shape}): kernel {e['ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"plain {e['plain_ms']:.4f} ms, library {library:.4f} ms")
+    del q, k, v, do, lse, delta, args, qt, kt, vt, out, gt
 
 
 def _family_times(rows: list) -> None:

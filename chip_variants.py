@@ -1,5 +1,6 @@
 """Registers, spills and device times of the design variants tried for the
-bf16 dQ kernel and the decode kernel, from one call on one GPU.
+bf16 dQ kernel and the decode kernel, from one call on one GPU (the bf16
+forward and dK/dV kernels have none here).
 
     python3 chip_variants.py
 

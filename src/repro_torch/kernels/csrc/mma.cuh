@@ -1,7 +1,8 @@
-// Tensor-core building blocks of the bf16 attention kernels (sm_80+ PTX,
-// built for sm_90a): 16-byte cp.async tile copies with zero fill, ldmatrix
-// fragment loads, the m16n8k16 bf16 mma with f32 accumulators, and the
-// fragment index maps the kernels share.
+// Warp-level tensor-core building blocks of the bf16 dQ kernel (sm_80+ PTX,
+// built for sm_90a): 16-byte cp.async tile copies with zero fill (also the
+// decode kernel's), ldmatrix fragment loads, the m16n8k16 bf16 mma with f32
+// accumulators, and the fragment index maps.  The forward and dK/dV kernels
+// use Hopper's own instructions instead (sm90.cuh).
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4*g + t, g = lane/4, t = lane%4):
 //   A (16x16, row):  a0 (g, 2t..2t+1)   a1 (g+8, 2t..)  a2 (g, 8+2t..)  a3 (g+8, 8+2t..)
@@ -32,12 +33,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_u32(dst)), "l"(src), "r"(pred ? 16 : 0) : "memory");
-}
-
-// 4 bytes global -> shared, asynchronous, zero-filled when !pred.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(pred ? 4 : 0) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -105,21 +100,6 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
-// pack_a as a sum of two bf16 fragments, hi + lo, lo the rounding error
-// of hi: two products with hi and lo carry ~16 significant bits of each
-// value instead of bf16's 8.
-__device__ __forceinline__ void pack_a_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
-                                             const float (&c0)[4], const float (&c1)[4]) {
-  const float* c[2] = {c0, c1};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float x = c[i >> 1][2 * (i & 1)], y = c[i >> 1][2 * (i & 1) + 1];
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
-    lo[i] = pack_bf16(x - __low2float(h), y - __high2float(h));
-  }
-}
-
 // Per-lane shared-memory offsets (row, column) for ldmatrix_x4 at the
 // origin of a 16x16 block of a row-major tile:
 //  * a_frag: the A operand of a row-major [m][k] tile;
@@ -134,15 +114,5 @@ struct LaneOffsets {
         b_row((lane & 7) + (lane >> 4) * 8), b_col(((lane >> 3) & 1) * 8),
         bt_row((lane & 7) + ((lane >> 3) & 1) * 8), bt_col((lane >> 4) * 8) {}
 };
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 }  // namespace repro

@@ -26,18 +26,21 @@
 // build serves every offset.
 //
 // dq_kernel_bf16 and dkv_kernel_bf16 (bf16 inputs): every product on the
-// tensor cores (mma.m16n8k16, bf16 operands, f32 accumulators; mma.cuh).
-// Tiles stay bf16 in shared memory, rows padded by 8 so the ldmatrix loads
-// are free of bank conflicts.  Masked probabilities are selected as 0, never
-// multiplied: 0 * NaN is NaN in an mma, and cp.async zero-fills the rows past
-// l and the keys past the frontier, so no stale shared memory meets a 0.
+// tensor cores, bf16 operands and f32 accumulators.  Masked probabilities are
+// selected as 0, never multiplied: 0 * NaN is NaN in a product, and the
+// tiles are zero-filled past l and past the keys' frontier, so no stale
+// shared memory meets a 0.  Rounding P, P^T and dS to bf16 (dS^T to a bf16
+// pair) are the numerical changes from the f32 SIMT kernels.
 //
-// dq_kernel_bf16: the forward's tiling with P.V replaced by two products.
+// dq_kernel_bf16 (mma.m16n8k16 and cp.async, sm_80+ PTX; mma.cuh): a
+// flash-forward tiling with P.V replaced by two products.
 //  * one block per (b, hq, 64-row q tile), 4 warps of 16 query rows; q tiles
 //    are issued longest causal frontier first (grid z reversed).  Q and dO
 //    are staged once; 64-key K and V tiles arrive through a two-stage
 //    cp.async ring up to the tile's frontier ctx + min(q0 + 64, l); each warp
-//    skips the tiles past its own 16 rows' frontier;
+//    skips the tiles past its own 16 rows' frontier.  Tiles stay bf16 in
+//    shared memory, rows padded by 8 so the ldmatrix loads are free of bank
+//    conflicts;
 //  * the A fragments of Q and dO are read from shared memory (ldmatrix) at
 //    each k-step, not held: the dQ accumulator (hd f32 registers a lane) and
 //    the S and dP tiles (64 more) leave no room for them at hd 128, where
@@ -51,28 +54,40 @@
 //    is not scaled, so no large rows cancel as Q's do in dK.  dQ is scaled
 //    once, at the end.
 //
-// dkv_kernel_bf16:
-//  * one block per (b, hkv, 64-key tile), 4 warps of 16 keys; key tiles are
-//    issued in order, so the low tiles, which walk the most query rows, go
-//    first.  The block walks the rep query heads of its group and, for each,
-//    the q tiles from the first one that reaches the key tile; a warp skips
-//    the tiles that do not reach its own 16 keys;
-//  * K and V are staged once; Q, dO (bf16) and lse, delta (f32) of each q
-//    tile arrive through a two-stage cp.async ring, so the next tile's copy
-//    overlaps this tile's products;
+// dkv_kernel_bf16 (sm_90a: warp-specialised, wgmma fed by TMA; sm90.cuh):
+//  * persistent: at most one block per SM, each walking its share of the
+//    (b, hkv, 128-key tile) work, numbered key tile first (the low tiles,
+//    which walk the most query rows, first) and dealt out in a zigzag.  A
+//    block has two consumer warpgroups of 64 keys and one producer warp (of
+//    a producer warpgroup).  A unit walks the rep query heads of its group
+//    and, for each, the q tiles from the first one that reaches the key
+//    tile; a warpgroup skips the tiles that do not reach its own 64 keys.
+//    A unit wholly past ctx + l only writes zeros;
+//  * a unit's K and V are loaded once by TMA (the next unit's under this
+//    one's stores); 64-row Q and dO tiles (32 at hd 160)
+//    arrive by TMA through a two-stage mbarrier ring, their lse (log2
+//    units) and delta staged by the producer warp's 32 lanes beside them.
+//    Both consumer warpgroups read each Q/dO tile as the B operand.  K and V
+//    end at ctx + l in their tensor maps, Q and dO at l: TMA fills zeros;
+//  * setmaxnreg hands the producer's registers to the consumers (24 / 240):
+//    dK and dV accumulate in f32 registers (hd / 2 + hd / 2 a thread) beside
+//    S^T and dP^T (BQ / 2 each);
+//  * the two groups take turns to issue their products (ping-pong, two
+//    named barriers; two turns an item, taken by both groups for every
+//    item), so one group's exponentials run under the other's products;
 //  * keys are the M dimension of every product: S^T = K.Q^T, then
-//    P^T = exp(scale*S^T - lse[col]) (masked only in tiles that cross the
-//    diagonal or hold rows at and past l); dV += P^T.dO with P^T rounded to
-//    bf16 and reused from registers as the A operand (dO via ldmatrix.trans);
-//    dP^T = V.dO^T; dS^T = P^T * (dP^T - delta[col]) in f32; dK += dS^T.Q
-//    with dS^T from registers as a sum of two bf16 parts, hi + lo (two
-//    products): a single bf16 rounding of dS^T lost to cancellation across
-//    large q rows (logits x30).  dK is scaled once, at the end;
-//  * the dK and dV accumulators take hd f32 registers a lane; q tiles are 64
-//    rows up to hd 64 and 32 rows above, which keeps the scores in registers
-//    beside them.
-// Rounding P, P^T and dS to bf16 (dS^T to a bf16 pair) are the numerical
-// changes from the f32 SIMT kernels.
+//    dP^T = V.dO^T (both operands K-major in shared memory), whose product
+//    runs under P^T = exp2(scale*log2e*S^T - lse[col]) (masked only in tiles
+//    that cross the diagonal of the group's keys or hold rows at and past
+//    l); dS^T = P^T * (dP^T - delta[col]) in f32; dV += bf16(P^T).dO and
+//    dK += dS^T.Q with the A operands from registers, dO and Q MN-major.
+//    dS^T goes in as a sum of two bf16 parts, hi + lo (two products): a
+//    single bf16 rounding of dS^T lost to cancellation across large q rows
+//    (logits x30).  So the kernel issues 10*hd FLOPs a pair against the
+//    bound's 8*hd: 80% of the bound is its ceiling.  dK is scaled once, at
+//    the end, and written with dV by the one warpgroup that owns the keys.
+// The tile walk of dkv_kernel_bf16 is stated in Python in
+// kernels/tile_walk.py.
 //
 // dq_kernel_f32 and dkv_kernel_f32 (f32 inputs): f32 SIMT FMAs out of
 // shared memory; the tensor cores have no f32 product of f32 accuracy:
@@ -91,218 +106,18 @@
 //    per-pair P or dS broadcast by shuffle.
 #include "common.cuh"
 #include "mma.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 using namespace repro;
 using bf16 = __nv_bfloat16;
 
-// ------------------------------------------------------------ bf16, mma
-constexpr int kMmaBK = 64;              // keys per dK/dV block (16 per warp), per dQ K/V tile
-constexpr int kMmaBQ = 64;              // query rows per dQ block (16 per warp)
+// ------------------------------------------------------------- bf16 dQ, mma
+constexpr int kMmaBK = 64;              // keys per K/V tile
+constexpr int kMmaBQ = 64;              // query rows per block (16 per warp)
 constexpr int kMmaThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
-
-// query rows per q tile: 64 up to hd 64, 32 above, where the dK and dV
-// accumulators (hd f32 registers a lane) leave less room for the scores
-template <int HD>
-constexpr int kDkvBQ = HD <= 64 ? 64 : 32;
-
-template <int HD>
-constexpr size_t dkv_smem_bytes() {
-  constexpr int BQ = kDkvBQ<HD>;
-  return size_t(2 * kMmaBK + 2 * 2 * BQ) * (HD + kPad) * sizeof(bf16) +
-         2 * 2 * BQ * sizeof(float);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kMmaThreads)
-dkv_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                bf16* __restrict__ dk, bf16* __restrict__ dv, int l, int sk, int n_heads,
-                int rep, int ctx, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
-                int64_t v_sb, int64_t v_ss, int64_t do_sb, int64_t do_ss, int64_t dk_sb,
-                int64_t dk_ss, int64_t dv_sb, int64_t dv_ss, float scale, float scale_log2) {
-  constexpr int BQ = kDkvBQ<HD>;
-  constexpr int LD = HD + kPad;
-  constexpr int KT = HD / 16;           // k-steps of K.Q^T and V.dO^T
-  constexpr int NQ = BQ / 8;            // n-tiles of S^T (8 query rows each)
-  constexpr int NO = HD / 8;            // n-tiles of dK and dV (8 dims each)
-  extern __shared__ uint4 smem_u4[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_u4);
-  bf16* Vs = Ks + kMmaBK * LD;
-  bf16* Qs = Vs + kMmaBK * LD;          // [stage][BQ][LD]
-  bf16* dOs = Qs + 2 * BQ * LD;         // [stage][BQ][LD]
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LD);   // [stage][BQ]
-  float* dl_s = lse_s + 2 * BQ;                                 // [stage][BQ]
-
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const LaneOffsets lo(lane);
-  const int k0 = blockIdx.z * kMmaBK;
-  const int kw0 = k0 + warp * 16;       // first key of this warp
-  const int valid_end = ctx + l;        // keys at and past it get zero
-
-  float dka[NO][4], dva[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  if (k0 < valid_end) {
-    cp_async_tile<kMmaBK, HD, kMmaThreads>(Ks, k + b * k_sb + k0 * k_ss + int64_t(hk) * HD,
-                                           k_ss, valid_end - k0, tid);
-    cp_async_tile<kMmaBK, HD, kMmaThreads>(Vs, v + b * v_sb + k0 * v_ss + int64_t(hk) * HD,
-                                           v_ss, valid_end - k0, tid);
-    // first q tile whose frontier ctx + min(q0 + BQ, l) passes k0
-    const int iq_first = max(k0 - ctx, 0) / BQ;
-    const int per_head = (l + BQ - 1) / BQ - iq_first;
-    const int n_items = rep * per_head;   // (query head, q tile) pairs, in order
-    auto load_q = [&](int item) {
-      const int stage = item & 1;
-      const int h = hk * rep + item / per_head;
-      const int q0 = (iq_first + item % per_head) * BQ;
-      cp_async_tile<BQ, HD, kMmaThreads>(Qs + stage * BQ * LD,
-                                         q + b * q_sb + q0 * q_ss + int64_t(h) * HD, q_ss,
-                                         l - q0, tid);
-      cp_async_tile<BQ, HD, kMmaThreads>(dOs + stage * BQ * LD,
-                                         dout + b * do_sb + q0 * do_ss + int64_t(h) * HD,
-                                         do_ss, l - q0, tid);
-      if (tid < 2 * BQ) {
-        const int i = tid % BQ;
-        const bool ok = q0 + i < l;
-        const float* src = (tid < BQ ? lse : delta) + (int64_t(b) * n_heads + h) * l;
-        cp_async4((tid < BQ ? lse_s : dl_s) + stage * BQ + i, ok ? src + q0 + i : src, ok);
-      }
-    };
-    load_q(0);
-    cp_async_commit();
-
-    for (int it = 0; it < n_items; ++it) {
-      if (it + 1 < n_items) load_q(it + 1);   // into the stage freed last iteration
-      cp_async_commit();
-      cp_async_wait<1>();                     // item it (and K, V) have landed
-      __syncthreads();
-      const int q0 = (iq_first + it % per_head) * BQ;
-      if (kw0 < ctx + min(q0 + BQ, l)) {      // some row of the tile sees this warp's keys
-        const bf16* Qt = Qs + (it & 1) * BQ * LD;
-        const bf16* dOt = dOs + (it & 1) * BQ * LD;
-        const float* lse_t = lse_s + (it & 1) * BQ;
-        const float* dl_t = dl_s + (it & 1) * BQ;
-
-        // S^T = K.Q^T: 16 keys x BQ query rows
-        float st[NQ][4];
-#pragma unroll
-        for (int j = 0; j < NQ; ++j) st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < KT; ++kk) {
-          uint32_t ka[4];
-          ldmatrix_x4(ka, Ks + (warp * 16 + lo.a_row) * LD + kk * 16 + lo.a_col);
-#pragma unroll
-          for (int jp = 0; jp < NQ / 2; ++jp) {
-            uint32_t bq[4];
-            ldmatrix_x4(bq, Qt + (jp * 16 + lo.b_row) * LD + kk * 16 + lo.b_col);
-            mma_bf16(st[2 * jp], ka, bq[0], bq[1]);
-            mma_bf16(st[2 * jp + 1], ka, bq[2], bq[3]);
-          }
-        }
-
-        // P^T = exp(scale*S^T - lse[col]), masked only where the tile crosses
-        // the diagonal of this warp's keys or holds rows at and past l
-        const bool edge = kw0 + 15 > ctx + q0 || q0 + BQ > l;
-#pragma unroll
-        for (int j = 0; j < NQ; ++j) {
-          const int c = j * 8 + 2 * t4;
-          const float2 lc = *reinterpret_cast<const float2*>(lse_t + c);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float p = exp2f(st[j][e] * scale_log2 - ((e & 1) ? lc.y : lc.x) * kLog2e);
-            if (edge) {
-              const int key = kw0 + g + (e >> 1) * 8;
-              const int row = q0 + c + (e & 1);
-              if (!(row < l && key <= ctx + row)) p = 0.f;
-            }
-            st[j][e] = p;
-          }
-        }
-
-        // dV += P^T.dO: P^T from registers (bf16), dO through ldmatrix.trans
-#pragma unroll
-        for (int kk = 0; kk < NQ / 2; ++kk) {
-          uint32_t pa[4];
-          pack_a(pa, st[2 * kk], st[2 * kk + 1]);
-#pragma unroll
-          for (int dp = 0; dp < HD / 16; ++dp) {
-            uint32_t bo[4];
-            ldmatrix_x4_trans(bo, dOt + (kk * 16 + lo.bt_row) * LD + dp * 16 + lo.bt_col);
-            mma_bf16(dva[2 * dp], pa, bo[0], bo[1]);
-            mma_bf16(dva[2 * dp + 1], pa, bo[2], bo[3]);
-          }
-        }
-
-        // dP^T = V.dO^T
-        float dpt[NQ][4];
-#pragma unroll
-        for (int j = 0; j < NQ; ++j) dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < KT; ++kk) {
-          uint32_t va[4];
-          ldmatrix_x4(va, Vs + (warp * 16 + lo.a_row) * LD + kk * 16 + lo.a_col);
-#pragma unroll
-          for (int jp = 0; jp < NQ / 2; ++jp) {
-            uint32_t bo[4];
-            ldmatrix_x4(bo, dOt + (jp * 16 + lo.b_row) * LD + kk * 16 + lo.b_col);
-            mma_bf16(dpt[2 * jp], va, bo[0], bo[1]);
-            mma_bf16(dpt[2 * jp + 1], va, bo[2], bo[3]);
-          }
-        }
-
-        // dS^T = P^T * (dP^T - delta[col]), in f32
-#pragma unroll
-        for (int j = 0; j < NQ; ++j) {
-          const float2 dc = *reinterpret_cast<const float2*>(dl_t + j * 8 + 2 * t4);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[j][e] *= dpt[j][e] - ((e & 1) ? dc.y : dc.x);
-        }
-
-        // dK += dS^T.Q: dS^T from registers as bf16 hi + lo parts (Q through
-        // ldmatrix.trans, once for both); one bf16 rounding of dS^T is not
-        // enough where large q rows cancel in the sum
-#pragma unroll
-        for (int kk = 0; kk < NQ / 2; ++kk) {
-          uint32_t ds_hi[4], ds_lo[4];
-          pack_a_split(ds_hi, ds_lo, st[2 * kk], st[2 * kk + 1]);
-#pragma unroll
-          for (int dp = 0; dp < HD / 16; ++dp) {
-            uint32_t bq[4];
-            ldmatrix_x4_trans(bq, Qt + (kk * 16 + lo.bt_row) * LD + dp * 16 + lo.bt_col);
-            mma_bf16(dka[2 * dp], ds_hi, bq[0], bq[1]);
-            mma_bf16(dka[2 * dp + 1], ds_hi, bq[2], bq[3]);
-            mma_bf16(dka[2 * dp], ds_lo, bq[0], bq[1]);
-            mma_bf16(dka[2 * dp + 1], ds_lo, bq[2], bq[3]);
-          }
-        }
-      }
-      __syncthreads();   // every warp is done with stage it & 1 before it is refilled
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = kw0 + g + 8 * r;
-    if (key >= sk) continue;
-    bf16* dk_row = dk + b * dk_sb + key * dk_ss + int64_t(hk) * HD + 2 * t4;
-    bf16* dv_row = dv + b * dv_sb + key * dv_ss + int64_t(hk) * HD + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      *reinterpret_cast<uint32_t*>(dk_row + n * 8) =
-          pack_bf16(dka[n][2 * r] * scale, dka[n][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv_row + n * 8) = pack_bf16(dva[n][2 * r], dva[n][2 * r + 1]);
-    }
-  }
-}
 
 template <int HD>
 constexpr size_t dq_smem_bytes() {
@@ -466,6 +281,289 @@ dq_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<uint32_t*>(out + n * 8) =
           pack_bf16(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+  }
+}
+
+// ----------------------------------------------- bf16 dK/dV, wgmma + TMA
+constexpr int kDkvBK = 128;             // keys per block: two consumer warpgroups of 64
+constexpr int kStages = 2;              // Q/dO tiles in flight
+constexpr int kWsThreads = 384;         // consumer warpgroups 0 and 1, the producer's 2
+constexpr int kProducerRegs = 24;       // setmaxnreg: 24 x 128 + 240 x 256 = 384 x 168
+constexpr int kConsumerRegs = 240;
+
+// query rows per streamed Q/dO tile: 64, and 32 at hd 160, where the dK and
+// dV accumulators (hd f32 registers a thread) leave less room for S^T and dP^T
+template <int HD>
+constexpr int kDkvBQ = HD <= 128 ? 64 : 32;
+
+// Shared memory: K and V (128 rows), Q[stage] and dO[stage], lse (log2
+// units) and delta [stage][BQ] f32, then the barriers.
+template <int HD>
+struct DkvSmem {
+  using L = sm90::HeadLayout<HD>;
+  static constexpr int BQ = kDkvBQ<HD>;
+  static constexpr int kKV = L::template tile_bytes<kDkvBK>();
+  static constexpr int kQt = L::template tile_bytes<BQ>();
+  static constexpr int kV = kKV;
+  static constexpr int kQ = 2 * kKV;
+  static constexpr int kDo = kQ + kStages * kQt;
+  static constexpr int kLse = kDo + kStages * kQt;
+  static constexpr int kDelta = kLse + kStages * BQ * 4;
+  static constexpr int kBars = kDelta + kStages * BQ * 4;
+  static constexpr size_t kBytes = kBars + 8 * (2 + 2 * kStages) + 1024;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kWsThreads, 1)
+dkv_kernel_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                bf16* __restrict__ dk, bf16* __restrict__ dv, int l, int sk, int n_heads,
+                int rep, int ctx, int batch, int64_t dk_sb, int64_t dk_ss, int64_t dv_sb,
+                int64_t dv_ss, float scale, float scale_log2) {
+  using S = DkvSmem<HD>;
+  constexpr int BQ = S::BQ;
+  constexpr int KT = HD / 16;           // k-steps of K.Q^T and V.dO^T
+  constexpr int NQ = BQ / 8;            // column groups of S^T (8 query rows each)
+  constexpr int NO = HD / 8;            // column groups of dK and dV (8 dims each)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = sm90::smem_1024(smem_raw);
+  float* lse_s = reinterpret_cast<float*>(sm + S::kLse);
+  float* dl_s = reinterpret_cast<float*>(sm + S::kDelta);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + S::kBars);
+  uint64_t* kv_free = kv_full + 1;      // all 8 consumer warps are done with K and V
+  uint64_t* full = kv_free + 1;         // [stage]: Q, dO (TMA) and lse, delta (32 lanes) are in
+  uint64_t* empty = full + kStages;     // [stage]: all 8 consumer warps are done with it
+
+  // Persistent: the (b, hkv, key tile) units are numbered key tile first,
+  // so the low tiles, which walk the most query rows, come first; pass k of
+  // block x takes number k * grid + x, or k * grid + grid - 1 - x on odd
+  // passes (a zigzag, so every block's share is about the same).  A unit
+  // whose keys all lie at and past ctx + l only writes zeros.
+  const int valid_end = ctx + l;        // keys at and past it get zero
+  const int n_kv = n_heads / rep;
+  const int per_k = n_kv * batch;
+  const int n_units = (sk + kDkvBK - 1) / kDkvBK * per_k;
+  const int n_q_tiles = (l + BQ - 1) / BQ;
+  auto number = [&](int k) {
+    return k * int(gridDim.x) + ((k & 1) ? int(gridDim.x) - 1 - int(blockIdx.x) : int(blockIdx.x));
+  };
+  struct Unit {
+    int hk, b, k0, iq_first, per_head;
+  };
+  auto unit = [&](int u) {
+    const int k0 = u / per_k * kDkvBK;
+    // the first q tile whose frontier ctx + min(q0 + BQ, l) passes k0 (k0 -
+    // ctx is clamped at 0 before the division: C truncates toward zero)
+    const int iq_first = max(k0 - ctx, 0) / BQ;
+    return Unit{u % per_k % n_kv, u % per_k / n_kv, k0, iq_first, n_q_tiles - iq_first};
+  };
+  // the warpgroup, broadcast from lane 0 so the compiler sees it is warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, int(threadIdx.x) / 128, 0);
+
+  if (threadIdx.x == 0) {
+    sm90::bar_init(kv_full, 1);
+    sm90::bar_init(kv_free, 8);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::bar_init(full + s, 1 + 32);
+      sm90::bar_init(empty + s, 8);
+    }
+    sm90::bar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: warp 0 of the group streams each unit's K, V and items;
+    // lane 0 issues TMA, all 32 lanes stage lse and delta
+    sm90::regs_dec<kProducerRegs>();
+    if (threadIdx.x < 256 + 32) {
+      const int lane = threadIdx.x % 32;
+      int c = 0, m = 0;                            // items streamed, units with work
+      for (int n = 0; number(n) < n_units; ++n) {
+        const Unit u = unit(number(n));
+        if (u.k0 >= valid_end) continue;
+        sm90::bar_wait(kv_free, (m++ & 1) ^ 1);
+        if (lane == 0) {
+          sm90::bar_arrive_tx(kv_full, 2 * kDkvBK * HD * 2);
+          sm90::tma_load_tile<HD, kDkvBK>(sm, &tm_k, kv_full, u.hk, u.k0, u.b);
+          sm90::tma_load_tile<HD, kDkvBK>(sm + S::kV, &tm_v, kv_full, u.hk, u.k0, u.b);
+        }
+        for (int it = 0; it < rep * u.per_head; ++it, ++c) {
+          const int s = c % kStages;
+          const int h = u.hk * rep + it / u.per_head;
+          const int q0 = (u.iq_first + it % u.per_head) * BQ;
+          sm90::bar_wait(empty + s, ((c / kStages) & 1) ^ 1);
+          if (lane == 0) {
+            sm90::bar_arrive_tx(full + s, 2 * BQ * HD * 2);
+            sm90::tma_load_tile<HD, BQ>(sm + S::kQ + s * S::kQt, &tm_q, full + s, h, q0, u.b);
+            sm90::tma_load_tile<HD, BQ>(sm + S::kDo + s * S::kQt, &tm_do, full + s, h, q0, u.b);
+          }
+          const int64_t at = (int64_t(u.b) * n_heads + h) * l + q0;
+          for (int i = lane; i < BQ; i += 32) {
+            const bool ok = q0 + i < l;   // pad rows: 0, masked below
+            lse_s[s * BQ + i] = ok ? lse[at + i] * kLog2e : 0.f;
+            dl_s[s * BQ + i] = ok ? delta[at + i] : 0.f;
+          }
+          sm90::bar_arrive(full + s);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63 of each unit
+    sm90::regs_inc<kConsumerRegs>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const uint32_t base = sm90::smem_addr(sm);
+    // Ping-pong: the groups take turns to issue their products (named
+    // barriers 1 and 2, one per group), two turns an item (S^T and dP^T,
+    // then dV and dK), taken for every item, computed or not, so one
+    // group's exponentials and dS^T run under the other's products.  Group
+    // 0 goes first; every turn but group 1's last of a unit passes it on.
+    auto turn_wait = [&] { sm90::named_sync(1 + wg, 256); };
+    auto turn_pass = [&] { sm90::named_arrive(2 - wg, 256); };
+    float dka[HD / 2], dva[HD / 2];              // dK, dV of keys key0, key0 + 8
+    float st[BQ / 2], dpt[BQ / 2];               // S^T then P^T; dP^T then dS^T
+    int c = 0, m = 0;                            // items consumed, units with work
+
+    for (int n = 0; number(n) < n_units; ++n) {
+      const Unit u = unit(number(n));
+      const int hk = u.hk, b = u.b, iq_first = u.iq_first, per_head = u.per_head;
+      const int kw0 = u.k0 + 64 * wg;
+      const bool live = kw0 < valid_end;
+      const int key0 = kw0 + 16 * warp + g;      // this thread's keys: key0 and key0 + 8
+      if (u.k0 >= valid_end) {                   // a stale tail unit: zeros only
+        for (int i = tid; i < 64 * HD / 2; i += 128) {
+          const int key = kw0 + i / (HD / 2), col = 2 * (i % (HD / 2));
+          if (key >= sk) break;
+          *reinterpret_cast<uint32_t*>(dk + b * dk_sb + key * dk_ss + int64_t(hk) * HD + col) = 0u;
+          *reinterpret_cast<uint32_t*>(dv + b * dv_sb + key * dv_ss + int64_t(hk) * HD + col) = 0u;
+        }
+        continue;
+      }
+      const int n_items = rep * per_head;        // (query head, q tile) pairs, in order
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+      if (wg == 1) turn_pass();
+      sm90::bar_wait(kv_full, m & 1);
+      for (int it = 0; it < n_items; ++it, ++c) {
+        const int s = c % kStages;
+        const int q0 = (iq_first + it % per_head) * BQ;
+        const uint32_t q_base = base + S::kQ + s * S::kQt;
+        const uint32_t do_base = base + S::kDo + s * S::kQt;
+        sm90::bar_wait(full + s, (c / kStages) & 1);
+        const bool last = it == n_items - 1;
+        if (live && kw0 < ctx + min(q0 + BQ, l)) {  // some row of the tile sees these keys
+          // S^T = K.Q^T, then dP^T = V.dO^T (all operands K-major in shared
+          // memory), whose product runs under the exponentials of P^T
+          turn_wait();
+          sm90::wgmma_fence();
+          sm90::Wgmma<BQ>::ss0(st, sm90::desc_k<HD, kDkvBK>(base, 64 * wg, 0),
+                               sm90::desc_k<HD, BQ>(q_base, 0, 0));
+#pragma unroll
+          for (int kk = 1; kk < KT; ++kk)
+            sm90::Wgmma<BQ>::ss(st, sm90::desc_k<HD, kDkvBK>(base, 64 * wg, kk),
+                                sm90::desc_k<HD, BQ>(q_base, 0, kk), 1);
+          sm90::wgmma_commit();
+          sm90::Wgmma<BQ>::ss0(dpt, sm90::desc_k<HD, kDkvBK>(base + S::kV, 64 * wg, 0),
+                               sm90::desc_k<HD, BQ>(do_base, 0, 0));
+#pragma unroll
+          for (int kk = 1; kk < KT; ++kk)
+            sm90::Wgmma<BQ>::ss(dpt, sm90::desc_k<HD, kDkvBK>(base + S::kV, 64 * wg, kk),
+                                sm90::desc_k<HD, BQ>(do_base, 0, kk), 1);
+          sm90::wgmma_commit();
+          turn_pass();
+          sm90::wgmma_wait<1>();
+          sm90::fence_regs(st);
+
+          // P^T = exp(scale*S^T - lse[col]), masked only where the tile crosses
+          // the diagonal of this warpgroup's keys or holds rows at and past l
+          const bool edge = kw0 + 63 > ctx + q0 || q0 + BQ > l;
+          const float* lse_t = lse_s + s * BQ;
+          const float* dl_t = dl_s + s * BQ;
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            const int col = j * 8 + 2 * t4;
+            const float2 lc = *reinterpret_cast<const float2*>(lse_t + col);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float p = sm90::ex2(fmaf(st[4 * j + e], scale_log2, -((e & 1) ? lc.y : lc.x)));
+              if (edge) {
+                const int key = key0 + (e >> 1) * 8;
+                const int row = q0 + col + (e & 1);
+                if (!(row < l && key <= ctx + row)) p = 0.f;
+              }
+              st[4 * j + e] = p;
+            }
+          }
+          // dS^T = P^T * (dP^T - delta[col]), in f32
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(dpt);
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            const float2 dc = *reinterpret_cast<const float2*>(dl_t + j * 8 + 2 * t4);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? dc.y : dc.x));
+          }
+
+          // dV += bf16(P^T).dO and dK += (hi + lo)(dS^T).Q: A from registers,
+          // dO and Q MN-major; one bf16 rounding of dS^T is not enough where
+          // large q rows cancel in the sum
+          uint32_t pa[BQ / 16][4], dsh[BQ / 16][4], dsl[BQ / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk) {
+            sm90::pack_a(pa[kk], st + 8 * kk);
+            sm90::pack_a_split(dsh[kk], dsl[kk], dpt + 8 * kk);
+          }
+          turn_wait();
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            sm90::Wgmma<HD>::rs(dva, pa[kk], sm90::desc_mn<HD, BQ>(do_base, kk), 1);
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk) {
+            const uint64_t qd = sm90::desc_mn<HD, BQ>(q_base, kk);
+            sm90::Wgmma<HD>::rs(dka, dsh[kk], qd, 1);
+            sm90::Wgmma<HD>::rs(dka, dsl[kk], qd, 1);
+          }
+          sm90::wgmma_commit();
+          if (!(last && wg == 1)) turn_pass();
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(dva);
+          sm90::fence_regs(dka);
+          sm90::fence_regs(pa);
+          sm90::fence_regs(dsh);
+          sm90::fence_regs(dsl);
+        } else {                                    // this item's two turns, unused
+          turn_wait();
+          turn_pass();
+          turn_wait();
+          if (!(last && wg == 1)) turn_pass();
+        }
+        __syncwarp();
+        if (lane == 0) sm90::bar_arrive(empty + s);
+      }
+      __syncwarp();                              // every product of the unit is done
+      if (lane == 0) sm90::bar_arrive(kv_free);
+      ++m;
+
+      // one writer per output element; keys at and past ctx + l hold exact
+      // zeros (every pair with them was masked, or the group had no work)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = key0 + 8 * r;
+        if (key >= sk) continue;
+        bf16* dk_row = dk + b * dk_sb + key * dk_ss + int64_t(hk) * HD + 2 * t4;
+        bf16* dv_row = dv + b * dv_sb + key * dv_ss + int64_t(hk) * HD + 2 * t4;
+#pragma unroll
+        for (int k = 0; k < NO; ++k) {
+          *reinterpret_cast<uint32_t*>(dk_row + k * 8) =
+              sm90::pack_bf16x2(dka[4 * k + 2 * r] * scale, dka[4 * k + 2 * r + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dv_row + k * 8) =
+              sm90::pack_bf16x2(dva[4 * k + 2 * r], dva[4 * k + 2 * r + 1]);
+        }
+      }
+    }
   }
 }
 
@@ -789,19 +887,33 @@ cudaError_t launch_dkv_f32(const Args& a) {
 
 template <int HD>
 cudaError_t launch_dkv_bf16(const Args& a) {
-  auto kern = dkv_kernel_bf16<HD>;
-  const size_t smem = dkv_smem_bytes<HD>();
-  cudaError_t err = opt_in(kern, smem);
-  if (err != cudaSuccess) return err;
+  // K and V end at ctx + l for TMA: the stale tail past it reads as zeros
+  constexpr int BQ = kDkvBQ<HD>;
   const long long* st = a.st;
-  const dim3 grid(a.Hkv, a.B, (a.sk + kMmaBK - 1) / kMmaBK);
-  kern<<<grid, kMmaThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<bf16*>(a.o1), static_cast<bf16*>(a.o2), a.l, a.sk, a.Hq, a.Hq / a.Hkv,
-      a.ctx, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11], rsqrtf(float(HD)), rsqrtf(float(HD)) * kLog2e);
+  const int valid = a.ctx + a.l;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  cudaError_t err = sm90::make_map<HD>(&tm_q, a.q, a.B, a.l, a.Hq, st[0], st[1], BQ);
+  if (err == cudaSuccess)
+    err = sm90::make_map<HD>(&tm_k, a.k, a.B, valid, a.Hkv, st[2], st[3], kDkvBK);
+  if (err == cudaSuccess)
+    err = sm90::make_map<HD>(&tm_v, a.v, a.B, valid, a.Hkv, st[4], st[5], kDkvBK);
+  if (err == cudaSuccess)
+    err = sm90::make_map<HD>(&tm_do, a.dout, a.B, a.l, a.Hq, st[6], st[7], BQ);
+  if (err != cudaSuccess) return err;
+  auto kern = dkv_kernel_bf16<HD>;
+  const size_t smem = DkvSmem<HD>::kBytes;
+  err = opt_in(kern, smem);
+  if (err != cudaSuccess) return err;
+  // one block per SM at most, each walking its share of the units
+  int sms = 0;
+  err = sm90::sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int units = (a.sk + kDkvBK - 1) / kDkvBK * a.Hkv * a.B;
+  kern<<<min(units, sms), kWsThreads, smem, a.stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf16*>(a.o1), static_cast<bf16*>(a.o2),
+      a.l, a.sk, a.Hq, a.Hq / a.Hkv, a.ctx, a.B, st[8], st[9], st[10], st[11],
+      rsqrtf(float(HD)), rsqrtf(float(HD)) * kLog2e);
   return cudaGetLastError();
 }
 

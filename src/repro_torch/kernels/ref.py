@@ -34,6 +34,14 @@ def _softmax_lse(logits: torch.Tensor):
     return p / s, (m + torch.log(s))[..., 0]
 
 
+def attention_mask(l: int, ctx: int, sk: int, device=None) -> torch.Tensor:
+    """(l, Sk) bool: query row i (position ctx + i) sees key kv iff kv <= ctx
+    + i and kv < ctx + l (keys of a stale cache tail past ctx + l never)."""
+    qp = torch.arange(l, device=device)[:, None] + ctx
+    kp = torch.arange(sk, device=device)[None, :]
+    return (qp >= kp) & (kp < ctx + l)
+
+
 def terapipe_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            ctx: int):
     """Attention of a query slice at absolute offset ``ctx``; returns
@@ -47,11 +55,8 @@ def terapipe_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the PV product, as in the kernel.
     """
     b, l, hq, hd = q.shape
-    sk = k.shape[1]
     logits = _grouped_logits(q, k)
-    qp = torch.arange(l, device=q.device)[:, None] + ctx
-    kp = torch.arange(sk, device=q.device)[None, :]
-    mask = (qp >= kp) & (kp < ctx + l)
+    mask = attention_mask(l, ctx, k.shape[1], q.device)
     probs, lse = _softmax_lse(logits.masked_fill(~mask, float("-inf")))
     return _grouped_pv(probs, v, hq).to(q.dtype), lse
 
@@ -65,9 +70,7 @@ def _bwd_probs(q, k, v, do, lse, delta, ctx: int):
     qg = q.float().reshape(b, l, hkv, rep, hd)
     dog = do.float().reshape(b, l, hkv, rep, hd)
     kf, vf = k.float(), v.float()
-    qp = torch.arange(l, device=q.device)[:, None] + ctx
-    kp = torch.arange(sk, device=q.device)[None, :]
-    mask = (qp >= kp) & (kp < ctx + l)                            # (l, Sk)
+    mask = attention_mask(l, ctx, sk, q.device)                   # (l, Sk)
     rows = lambda t: t.reshape(b, hkv, rep, l, 1)
     logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) / math.sqrt(hd)
     p = torch.where(mask, torch.exp(logits - rows(lse)), 0.0)

@@ -7,7 +7,10 @@ fwd_kernel_bf16``, ``csrc/terapipe_attention_bwd.cu::dq_kernel_bf16`` and
 from bf16 operands, the probabilities P (forward) and P^T (dK/dV) rounded to
 bf16 before the products that consume them, dS rounded to bf16 once before
 dS.K (dQ), dS^T split into two bf16 parts (hi + its rounding error, two
-products) before dS^T.Q (dK), f32 accumulation.  The f32 SIMT kernels they
+products) before dS^T.Q (dK), f32 accumulation.  The forward (wgmma) keeps
+its running max in raw score units per 128-key tile and takes P =
+2^(scale*log2e*(S - m)) against it; the dK/dV kernel (wgmma) takes P^T =
+2^(scale*log2e*S^T - lse*log2e), whole rows at once.  The f32 SIMT kernels they
 replace kept P and dS in f32.  The decode kernel (``csrc/decode_attention.cu``)
 splits the cache into chunks of ``CHUNK`` keys, keeps a softmax state per
 chunk and merges the states in chunk order.  Plain emulations of that
@@ -39,7 +42,7 @@ from test_torch_kernels_bwd import CASES
 # each keeps torch's pool from oversubscribing them
 torch.set_num_threads(1)
 
-KEY_TILE = 64     # keys per K/V tile of fwd_kernel_bf16
+KEY_TILE = 128    # keys per K/V tile of fwd_kernel_bf16 (tile_walk.FWD_BK)
 LOG2E = 1 / math.log(2)
 
 
@@ -53,11 +56,14 @@ def _expand(t: torch.Tensor, rep: int) -> torch.Tensor:
 
 
 def tc_forward(q, k, v, ctx: int):
-    """fwd_kernel_bf16's arithmetic: per 64-key tile, f32 scores of bf16
-    operands, the online softmax in f32 with the guarded rescale, P rounded
-    to bf16 for P.V, the denominator summed from f32 P; returns (O, lse)."""
+    """fwd_kernel_bf16's arithmetic: per 128-key tile, f32 scores of bf16
+    operands, the running max m of the raw scores, P = 2^(c*(S - m)) with c =
+    log2e/sqrt(hd), the guarded rescale 2^(c*(m_old - m)), P rounded to bf16
+    for P.V, the denominator summed from f32 P, lse = m*c*ln2 + log(den);
+    returns (O, lse)."""
     b, l, hq, hd = q.shape
     rep = hq // k.shape[2]
+    c = LOG2E / math.sqrt(hd)
     qf, kf, vf = q.float(), _expand(k, rep), _expand(v, rep)
     qpos = ctx + torch.arange(l)
     m = torch.full((b, hq, l), -math.inf)
@@ -65,22 +71,22 @@ def tc_forward(q, k, v, ctx: int):
     acc = torch.zeros((b, hq, l, hd))
     for t0 in range(0, ctx + l, KEY_TILE):
         keys = torch.arange(t0, min(t0 + KEY_TILE, ctx + l))
-        x = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, keys]) / math.sqrt(hd)
+        x = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, keys])
         x = x.masked_fill(keys[None, :] > qpos[:, None], -math.inf)
         m_new = torch.maximum(m, x.amax(-1))
-        alpha = torch.where(m == -math.inf, 0.0, torch.exp(m - m_new))
-        p = torch.exp(x - torch.where(m_new == -math.inf, 0.0, m_new)[..., None])
+        alpha = torch.where(m == -math.inf, 0.0, torch.exp2((m - m_new) * c))
+        p = torch.exp2(x * c - torch.where(m_new == -math.inf, 0.0, m_new * c)[..., None])
         s = s * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", _bf16(p), vf[:, keys])
         m = m_new
     den = s.clamp_min(1e-30)
     out = (acc / den[..., None]).transpose(1, 2).to(torch.bfloat16)
-    return out, m + torch.log(den)
+    return out, m * c * math.log(2) + torch.log(den)
 
 
 def tc_dkv(q, k, v, do, lse, delta, ctx: int):
-    """dkv_kernel_bf16's arithmetic: P^T = exp(scale*S^T - lse) in f32 from
-    bf16 operands, dV = bf16(P^T).dO, dP^T = V.dO^T, dS^T = P^T*(dP^T -
+    """dkv_kernel_bf16's arithmetic: P^T = 2^(scale*log2e*S^T - lse*log2e)
+    in f32 from bf16 operands, dV = bf16(P^T).dO, dP^T = V.dO^T, dS^T = P^T*(dP^T -
     delta) in f32, dK = scale * (hi + lo).Q with hi = bf16(dS^T) and lo =
     bf16(dS^T - hi), all accumulated in f32 and summed over each kv head's
     query heads; returns (dK, dV) in bf16."""
@@ -93,7 +99,7 @@ def tc_dkv(q, k, v, do, lse, delta, ctx: int):
     kpos = torch.arange(sk)
     mask = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < ctx + l)      # (l, Sk)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
-    p = torch.where(mask, torch.exp(s * scale - lse[..., None]), 0.0)
+    p = torch.where(mask, torch.exp2(s * (scale * LOG2E) - lse[..., None] * LOG2E), 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = p * (dp - delta[..., None])
     dv = torch.einsum("bhqk,bqhd->bkhd", _bf16(p), dof)
