@@ -9,16 +9,19 @@ result line):
                source, all at once; print each instance's registers and
                spills (-Xptxas -v) and its HGMMA (wgmma), HMMA (mma.sync)
                and UTMALDG (TMA load) counts (cuobjdump -sass); every bf16
-               instance of fwd_kernel_bf16 and dkv_kernel_bf16 (six head
-               dims) must run wgmma fed by TMA and no mma.sync, every one
-               of dq_kernel_bf16 mma.sync, no bf16 SIMT instance of them
-               may remain, and the hd-128 ones (the main paths') must not
-               spill; the decode kernels' registers and spills at hd 128;
+               instance of fwd_kernel_bf16, dq_kernel_bf16 and
+               dkv_kernel_bf16 (six head dims) must run wgmma fed by TMA and
+               no mma.sync, no bf16 SIMT instance of them may remain, and
+               the hd-128 ones (the main paths') must not spill; decode is
+               one kernel (decode_kernel, one launch over a thread-block
+               cluster) whose every instance loads by TMA: its registers
+               and spills at hd 128, and no other decode kernel remains;
   2. kernels — hold each kernel against its plain PyTorch version on the
                card, bf16 (atol/rtol 2e-2) and f32 (2e-5; with logits x30,
                1e-4 for the forward and 3e-3 for the backward): prefill O
-               and lse, decode O (lengths at the decode kernel's chunk
-               edges 0, 1, C-1, C, C+1 and L, per-batch mixes, GQA rep 1-8),
+               and lse, decode O (lengths at the decode cluster's split
+               edges 0, 1, C-1, C, BOX*C-1, BOX*C+1 and L, per-batch mixes,
+               GQA rep 1-16, two query-head groups),
                and the backward's dQ, dK and dV (with exactly zero dK/dV on
                every stale cache tail), on a grid of serving shapes (every
                head dim 16-160, an 8-token chunk at ctx 250) and at the
@@ -302,7 +305,7 @@ from repro_torch.distributed.collectives import (bf16_compress,  # noqa: E402
                                                  bf16_decompress, int8_ef_compress,
                                                  int8_ef_decompress, int8_ef_init)
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.decode_attention import CHUNK, decode_attention_kernel  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention_kernel  # noqa: E402
 from repro_torch.kernels import ops, tile_walk  # noqa: E402
 from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
                                      terapipe_attention_bwd_ref,
@@ -377,25 +380,33 @@ def log(msg: str) -> None:
 
 
 # --------------------------------------------------------------- 1. build
-# the tensor-core kernels: the forward and dK/dV as wgmma fed by TMA (HGMMA,
-# UTMALDG, no HMMA), dQ as mma.sync (HMMA)
-TENSOR_CORE_KERNELS = ("fwd_kernel_bf16", "dq_kernel_bf16", "dkv_kernel_bf16")
-WGMMA_KERNELS = ("fwd_kernel_bf16", "dkv_kernel_bf16")
-MMA_SYNC_KERNELS = ("dq_kernel_bf16",)
+# the tensor-core kernels: the forward, dQ and dK/dV as wgmma fed by TMA
+# (HGMMA, UTMALDG, no HMMA)
+WGMMA_KERNELS = ("fwd_kernel_bf16", "dq_kernel_bf16", "dkv_kernel_bf16")
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")
-DECODE_KERNELS = ("decode_chunk_kernel", "decode_merge_kernel")
+# decode: one kernel, decode_kernel<dtype, hd, R> (R query heads per cluster:
+# the least power of two that holds the GQA group, 8 past that), loading its
+# boxes by TMA (UTMALDG)
+DECODE_KERNELS = ("decode_kernel",)
+DECODE_ROWS = (1, 2, 4, 8)
 MAIN_PATH_HD = 128          # gpt3-1b and qwen3-0.6b: these instances must not spill
 
 
 def _kernel_label(mangled: str) -> str:
-    """'fwd_kernel_bf16<128>' from an Itanium-mangled kernel name."""
-    m = re.search(r"\d+((?:fwd|dq|dkv|decode)\w*?)I(.*?)E", mangled)
+    """'fwd_kernel_bf16<128>' or 'decode_kernel<bf16,128,2>' from an
+    Itanium-mangled kernel name: its template arguments, types as bf16 or
+    f32, integers as they are."""
+    m = re.search(r"\d+((?:fwd|dq|dkv|decode)\w*?)I", mangled)
     if not m:
         return mangled
-    targs = m.group(2)          # template arguments: [type]Li<hd>
-    dtype = "bf16," if "__nv_bfloat16" in targs else "f32," if targs.startswith("f") else ""
-    hd = re.search(r"Li(\d+)", targs)
-    return f"{m.group(1)}<{dtype}{hd.group(1) if hd else '?'}>"
+    rest, args = mangled[m.end():], []
+    while True:
+        t = re.match(r"Li(\d+)E|13__nv_bfloat16|f", rest)
+        if not t:
+            break
+        args.append(t.group(1) or ("f32" if t.group(0) == "f" else "bf16"))
+        rest = rest[t.end():]
+    return f"{m.group(1)}<{','.join(args)}>"
 
 
 def _ptxas_report(log_text: str) -> dict:
@@ -435,9 +446,10 @@ def _sass_counts(lib: Path) -> dict:
 def phase_build() -> None:
     """Builds every source; prints each kernel instance's registers, spills
     and its HGMMA / HMMA / UTMALDG counts; asserts that every bf16 instance
-    of the forward and dK/dV kernels runs wgmma fed by TMA and no mma.sync,
-    that every one of dQ runs mma.sync, that no bf16 SIMT instance of them
-    remains, and that the main path's hd-128 instances do not spill.  The
+    of the forward, dQ and dK/dV kernels runs wgmma fed by TMA and no
+    mma.sync, that no bf16 SIMT instance of them remains, that the main
+    path's hd-128 instances do not spill, and that decode is the one
+    cluster kernel, every instance of it loading by TMA.  The
     warp-specialised kernels' registers are ptxas's entry count (the block's
     384 threads at 168); after setmaxnreg the consumers run at 240, the
     producer at 24, and the spills are the whole kernel's."""
@@ -458,25 +470,38 @@ def phase_build() -> None:
     bad = [f"{k}<{hd}>: {ops.get(f'{k}<{hd}>')}" for k in WGMMA_KERNELS for hd in HEAD_DIMS
            if not (ops.get(f"{k}<{hd}>", {}).get("HGMMA") and ops[f"{k}<{hd}>"]["UTMALDG"]
                    and ops[f"{k}<{hd}>"]["HMMA"] == 0)]
-    bad += [f"{k}<{hd}>: {ops.get(f'{k}<{hd}>')}" for k in MMA_SYNC_KERNELS for hd in HEAD_DIMS
-            if not ops.get(f"{k}<{hd}>", {}).get("HMMA")]
     if bad:
         raise AssertionError(f"bf16 instances off their instruction mix: {bad}")
     simt_bf16 = [fn for fn in ops if fn.startswith(("fwd_kernel", "dq_kernel", "dkv_kernel"))
-                 and "bf16" in fn and fn.split("<")[0] not in TENSOR_CORE_KERNELS]
+                 and "bf16" in fn and fn.split("<")[0] not in WGMMA_KERNELS]
     if simt_bf16:
         raise AssertionError(f"bf16 SIMT instances remain: {simt_bf16}")
-    for kern in TENSOR_CORE_KERNELS:
+    for kern in WGMMA_KERNELS:
         r = report[f"{kern}<{MAIN_PATH_HD}>"]
         if r["spill_stores"] or r["spill_loads"]:
             raise AssertionError(f"{kern}<{MAIN_PATH_HD}>, on the main path, spills: {r}")
     log(f"[build] all {len(HEAD_DIMS)} head dims of {', '.join(WGMMA_KERNELS)} run HGMMA "
-        f"fed by UTMALDG and no HMMA, of {', '.join(MMA_SYNC_KERNELS)} HMMA; no bf16 SIMT "
-        f"instance; hd {MAIN_PATH_HD} spills 0 bytes")
+        f"fed by UTMALDG and no HMMA; no bf16 SIMT instance; hd {MAIN_PATH_HD} spills 0 bytes")
+    decode = [fn for fn in ops if fn.startswith("decode")]
+    others = sorted({fn.split("<")[0] for fn in decode} - set(DECODE_KERNELS))
+    if others:
+        raise AssertionError(f"decode kernels besides {DECODE_KERNELS} remain: {others}")
+    want = [f"{k}<{dt},{hd},{r}>" for k in DECODE_KERNELS for dt in ("bf16", "f32")
+            for hd in HEAD_DIMS for r in DECODE_ROWS]
+    bad = [f"{fn}: {ops.get(fn)}" for fn in want
+           if not ops.get(fn, {}).get("UTMALDG") or ops[fn]["HMMA"]]
+    if bad or len(decode) != len(want):
+        raise AssertionError(f"decode instances without a TMA load or with mma.sync, or not "
+                             f"{len(want)}: {bad or sorted(decode)}")
     for kern in DECODE_KERNELS:
         for dt in ("bf16", "f32"):
-            fn = f"{kern}<{dt},{MAIN_PATH_HD}>"
-            log(f"[build] {fn} (serving's decode, chunk {CHUNK} keys): {report[fn]}")
+            for r in DECODE_ROWS:
+                fn = f"{kern}<{dt},{MAIN_PATH_HD},{r}>"
+                log(f"[build] {fn} (decode, one launch over clusters of "
+                    f"{tile_walk.DECODE_CLUSTER} CTAs, {r} query heads, "
+                    f"{tile_walk.DECODE_BOX}-key TMA boxes): {report[fn]}, {ops[fn]}")
+    log(f"[build] decode: {len(want)} instances of {', '.join(DECODE_KERNELS)}, each loading "
+        f"by TMA (UTMALDG), none with mma.sync; no merge kernel")
     log(f"[card] {_card()}")
 
 
@@ -570,23 +595,30 @@ def _check_bf16_row_stride() -> None:
     raise AssertionError(f"bf16 row stride {row} (not a multiple of 8) was accepted")
 
 
-# (B, L, Hq, Hkv, hd, kv_len): the serving round, lengths at the chunk edges
-# (0, 1, C-1, C, C+1, L), per-batch mixes, L not a multiple of C, GQA rep
-# 1, 2, 4 and 8 (two query-head groups per kv head), every head dim
+# (B, L, Hq, Hkv, hd, kv_len): the serving round, per-batch mixes, L not a
+# multiple of 128, GQA rep 1, 2, 3, 4, 8, 12 and 16 (two query-head groups
+# at 12 and 16), every head dim; lengths at the old 128-key chunk edges and
+# at the decode cluster's split edges: below C, C, not a multiple of the
+# box, BOX*C -+ 1 (a span of one box, of two) and L
+C, BOX = tile_walk.DECODE_CLUSTER, tile_walk.DECODE_BOX
 SERVE_ROUND = (4, 2048, 16, 8, 128, [1056, 544, 800, 160])
 DECODE_CASES = [SERVE_ROUND,
-                (6, 2048, 16, 8, 128, [0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2048]),
+                (6, 2048, 16, 8, 128, [0, 1, 127, 128, 129, 2048]),
                 (4, 2048, 16, 8, 128, [1, 2048, 700, 1333]),
                 (4, 2048, 16, 8, 128, 1500),
                 (4, 2048, 16, 8, 128, 1),
                 (2, 256, 16, 8, 128, 0),
                 (3, 512, 16, 4, 160, [5, 512, 77]),
-                (3, 512, 16, 4, 160, [CHUNK, 0, 2 * CHUNK + 1]),
+                (3, 512, 16, 4, 160, [128, 0, 257]),
                 (3, 512, 8, 8, 32, [300, 1, 512]),
-                (2, 300, 8, 8, 16, [CHUNK + 1, 300]),
-                (2, 384, 16, 2, 64, [2 * CHUNK - 1, 384]),
-                (2, 640, 16, 8, 96, [3 * CHUNK, 641]),
-                (2, 2048, 64, 4, 128, [1040, 517])]      # qwen3-moe: GQA rep 16
+                (2, 300, 8, 8, 16, [129, 300]),
+                (2, 384, 16, 2, 64, [255, 384]),
+                (2, 640, 16, 8, 96, [384, 641]),
+                (2, 2048, 64, 4, 128, [1040, 517]),      # qwen3-moe: GQA rep 16
+                (8, 2048, 16, 8, 128, [0, 1, C - 1, C, BOX * C - 1, BOX * C + 1, 2048, 999]),
+                (3, 300, 64, 4, 128, [C - 1, 300, 2 * BOX + 5]),
+                (3, 600, 24, 2, 64, [BOX * C + 1, 600, C - 1]),
+                (2, 333, 12, 4, 96, [333, BOX + 1])]
 # phase 8b's decodes: phi-3-vision's first step after its 2 x 2048 prefill
 # into 2112 rows, whisper's after 2 x 64 tokens into 448
 FAMILY_DECODE_CASES = [(2, 2112, 32, 32, 96, 2049), (2, 448, 16, 16, 64, 65)]
@@ -639,7 +671,7 @@ def phase_kernels() -> dict:
             empty = torch.as_tensor(kv_len, device="cuda").reshape(-1).expand(b) == 0
             if torch.count_nonzero(out[empty]).item():
                 raise AssertionError(f"decode {dtype} kv_len={kv_len}: kv_len 0 not exactly 0")
-        # the chunks are merged in a fixed order, with no atomics: two calls
+        # the spans are merged in a fixed order, with no atomics: two calls
         # on the same inputs agree bit for bit
         b, L, hq, hkv, hd, kv_len = SERVE_ROUND
         q = _rand((b, 1, hq, hd), dtype, gen)
@@ -3567,9 +3599,13 @@ def phase_times(errs: dict, launches: dict) -> list:
     shares = [len(d) for d in tile_walk.deal(walk["fwd_units"], sms)]
     log(f"[times] tile walk at the training shape (kernels/tile_walk.py; forward: "
         f"{tile_walk.FWD_BQ}-row q tiles, {tile_walk.FWD_BK}-key tiles, warpgroups of "
-        f"{tile_walk.GROUP} rows; dK/dV: {tile_walk.DKV_BK}-key units, "
+        f"{tile_walk.GROUP} rows; dQ: {tile_walk.DQ_BQ}-row q tiles, {tile_walk.dq_bk(128)}-key "
+        f"tiles; dK/dV: {tile_walk.DKV_BK}-key units, "
         f"{tile_walk.dkv_bq(128)}-row q tiles; each dealt to {len(shares)} persistent blocks, "
         f"{min(shares)}-{max(shares)} units each): {walk}")
+    log(f"[times] decode spans of the serving round (tile_walk.decode_spans, clusters of "
+        f"{tile_walk.DECODE_CLUSTER}, {tile_walk.DECODE_BOX}-key boxes): "
+        f"{[tile_walk.decode_spans(n) for n in SERVE_ROUND[-1]]}")
     return rows
 
 

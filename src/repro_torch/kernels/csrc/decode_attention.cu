@@ -11,51 +11,80 @@
 // for 2 FLOPs per query head of its group, far below the card's ridge point,
 // so the least time is (K + V bytes up to kv_len) / 3.35 TB/s.  One serving
 // round reads ~10 MB: the time goes to latency unless the whole card has
-// copies in flight at once.  The design splits the sequence (split-K flash
-// decode), in two kernels per call:
-//  * decode_chunk_kernel: one block per (b, kv head, group of up to 4 query
-//    heads, chunk of kChunk = 128 keys).  The grid's chunk axis is sized
-//    from L; a block whose chunk starts at or past kv_len[b] exits, so K/V
-//    past kv_len is never read.  At the serving shape (B 4, kv_len [1056,
-//    544, 800, 160], Hkv 8) that is 184 live blocks for the 132 SMs, where
-//    one block per (b, kv head) gave 32.  The block issues its whole chunk
-//    of K and V (64 KB in bf16 at hd 128) as 16-byte cp.async copies at
-//    once, zero-filled past kv_len, so one round trip to memory serves it.
-//    The query heads of the group share that one read of their kv head's
-//    cache.  Thread t scores key t against each query head (q pre-scaled by
-//    scale*log2e, so scores are in log2 units; rows padded by 16 bytes, so
-//    the 16-byte reads of 8 threads fall in distinct banks); a block max and
-//    sum give the chunk's softmax state; for P.V each warp takes its own 32
-//    keys, each lane 4 output dims, P broadcast by shuffle; the 4 warps' sums
-//    are added through shared memory in a fixed order.  The block writes its
-//    partial state (m, s, acc[hd]) in f32 to a workspace;
-//  * decode_merge_kernel: one block per (b, query head) combines the live
-//    chunks' states in chunk order: M = max m_c, out = sum_c acc_c *
-//    2^(m_c - M) / max(sum_c s_c * 2^(m_c - M), 1e-30).
-// Every output is written by one block in a fixed order, with no atomics:
+// copies in flight at once.  The design splits the sequence over a thread
+// block cluster, in one launch and with no workspace (decode_kernel):
+//  * a cluster of kCluster = 8 CTAs (the portable size) per (b, kv head,
+//    group of up to R query heads: R is 1, 2, 4 or 8, the least that holds
+//    the GQA group, groups of 8 past that).  CTA rank r takes one contiguous
+//    span of [0, kv_len[b]): ceil(kv_len / 8) keys rounded up to the box,
+//    read on the device from kv_len (tile_walk.decode_spans); a rank whose
+//    span is empty contributes (m, s, acc) = (-inf, 0, 0);
+//  * the span streams through TMA boxes of kBox = 32 keys of K and V (tensor
+//    maps over the (B, L, Hkv, hd) cache, in HeadLayout's swizzle, so the
+//    thread-per-key reads of a box are free of bank conflicts).  Each of W
+//    warps owns one stage of the ring (a K and a V slot, each with its
+//    "full" mbarrier) and takes boxes w, w + W, ...: every warp's first box
+//    is in flight at once, and a warp refills each slot as soon as it has
+//    read it (K after the scores, V after P.V), so box i's softmax and P.V
+//    run under the loads of the boxes after it.  W is as many stages as 72
+//    KB hold, 2 to 8 (4 at hd 128 in bf16: three CTAs fit on an SM, so
+//    every cluster of a serving round is resident at once).  The query
+//    heads of the group share each box;
+//  * lane j scores key j of the box against each query head (q staged in
+//    f32, pre-scaled by scale*log2e, so scores are in log2 units); keys at
+//    and past kv_len are selected as -inf, and in a box that holds such keys
+//    their V rows are zeroed first (the cache past kv_len may hold anything,
+//    and 0 * NaN is NaN), so P.V runs over the whole box, unrolled.  Each
+//    warp keeps its own online softmax: m (warp max per box), this lane's
+//    part of s, and acc over the dims d = 4*lane + 128*g that the lane owns
+//    in P.V, with P broadcast from shared memory;
+//  * the CTA merges its warps in order into its state (m, s, acc[hd]) per
+//    query head in shared memory (the warps' states where the stages were).
+//    After a cluster barrier, rank r writes dims [r*hd/8, (r+1)*hd/8) of
+//    each head, reading the 8 ranks' states through distributed shared
+//    memory in rank order (key order): M = max m_r, O = sum acc_r 2^(m_r -
+//    M) / max(sum s_r 2^(m_r - M), 1e-30).  A second cluster barrier keeps
+//    every CTA alive until its shared memory has been read.
+// The box walk is on the CUDA cores: the tensor cores' products save little
+// here, since a call is bound by the latency of its loads and barriers, not
+// by its arithmetic.
+// Every output is written by one thread in a fixed order, with no atomics:
 // two calls on the same inputs agree bit for bit.
 #include "common.cuh"
-#include "mma.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 using namespace repro;
 
-constexpr int kChunk = 128;             // keys per block: thread t <-> key t
-constexpr int kThreads = kChunk;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 4;                // query heads per block (one GQA group, or part)
-constexpr int kMergeThreads = 128;
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kCluster = 8;             // CTAs per (b, kv head, query-head group)
+constexpr int kBox = 32;                // keys per TMA box: lane j <-> key j
+constexpr int kStageBudget = 72 * 1024; // bytes of K/V boxes in flight per CTA
 
-// row pitch of the K/V chunk in shared memory, in elements: 16 bytes of pad
-template <typename T, int HD>
-constexpr int kChunkLd = HD + 16 / int(sizeof(T));
-
-template <typename T, int HD>
-constexpr size_t chunk_smem_bytes() {
-  return size_t(2 * kChunk) * kChunkLd<T, HD> * sizeof(T);
-}
+// Shared memory: W stages of a K and a V box (after the walk, the warps'
+// states acc [W][R][HD] and the CTA's acc [R][HD], f32), then f32: q rows
+// [R][HD], the warps' probabilities [W][R][kBox] and (m, s) [W][R][2], the
+// CTA's (m, s) [R][2]; then the barriers.
+template <typename T, int HD, int R>
+struct DecodeSmem {
+  using L = sm90::HeadLayout<HD, T>;
+  static constexpr int kBoxBytes = L::template tile_bytes<kBox>();
+  // warps, one ring stage (a K and a V box) each
+  static constexpr int W = kStageBudget / (2 * kBoxBytes) < 2   ? 2
+                           : kStageBudget / (2 * kBoxBytes) > 8 ? 8
+                                                                 : kStageBudget / (2 * kBoxBytes);
+  static constexpr int kK = 0;
+  static constexpr int kV = W * kBoxBytes;
+  static constexpr int kWAcc = 0;
+  static constexpr int kAcc = W * R * HD * 4;
+  static_assert((W + 1) * R * HD * 4 <= 2 * W * kBoxBytes, "the states fit in the stages");
+  static constexpr int kQ = 2 * W * kBoxBytes;
+  static constexpr int kP = kQ + R * HD * 4;
+  static constexpr int kWMs = kP + W * R * kBox * 4;
+  static constexpr int kMs = kWMs + W * R * 8;
+  static constexpr int kBars = kMs + R * 8;
+  static constexpr size_t kBytes = kBars + 16 * W + 1024;
+};
 
 // 16 bytes of shared memory widened to floats (8 bf16 or 4 f32)
 __device__ __forceinline__ void widen16(const __nv_bfloat16* p, float (&x)[8]) {
@@ -74,211 +103,286 @@ __device__ __forceinline__ void widen16(const float* p, float (&x)[4]) {
   x[0] = f.x; x[1] = f.y; x[2] = f.z; x[3] = f.w;
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-decode_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ kv_len,
-                    float* __restrict__ part_acc, float* __restrict__ part_ms, int n_heads,
-                    int rep, int n_groups, int L, int n_chunks, int64_t q_sb, int64_t k_sb,
-                    int64_t k_ss, int64_t v_sb, int64_t v_ss, float scale_log2) {
-  constexpr int LD = kChunkLd<T, HD>;
-  constexpr int VEC = 16 / int(sizeof(T));   // elements per 16-byte copy
-  constexpr int CPR = HD / VEC;              // 16-byte copies per row
-  constexpr int NG = (HD + 127) / 128;       // 4-dim groups per lane: d = 4*lane + 128*g
-  extern __shared__ uint4 smem_u4[];
-  T* Ks = reinterpret_cast<T*>(smem_u4);
-  T* Vs = Ks + kChunk * LD;
-  __shared__ __align__(16) float Qs[kRows][HD];
-  __shared__ float red_m[kWarps][kRows], red_s[kWarps][kRows];
-  __shared__ __align__(16) float As[kWarps][kRows][HD];
+template <typename T, int HD, int R>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(32 * DecodeSmem<T, HD, R>::W)
+decode_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+              const T* __restrict__ q, const int* __restrict__ kv_len, T* __restrict__ o,
+              int n_heads, int rep, int n_groups, int n_kv, int L, int64_t q_sb, int64_t o_sb,
+              float scale_log2) {
+  using S = DecodeSmem<T, HD, R>;
+  using Lay = sm90::HeadLayout<HD, T>;
+  constexpr int W = S::W;
+  constexpr int kThreads = 32 * W;
+  constexpr int VEC = 16 / int(sizeof(T));   // elements per 16-byte chunk
+  constexpr int NG = (HD + 127) / 128;       // 4-dim groups per lane in P.V: d = 4*lane + 128*g
+  constexpr int DPR = HD / kCluster;         // output dims per rank
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = sm90::smem_1024(smem_raw);
+  float* qs = reinterpret_cast<float*>(sm + S::kQ);
+  float* wacc = reinterpret_cast<float*>(sm + S::kWAcc);
+  float* wms = reinterpret_cast<float*>(sm + S::kWMs);
+  float* cacc = reinterpret_cast<float*>(sm + S::kAcc);
+  float* cms = reinterpret_cast<float*>(sm + S::kMs);
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(sm + S::kBars);  // [warp]: its K box has landed
+  uint64_t* v_full = k_full + W;                                   // [warp]: ... its V box
 
-  const int c = blockIdx.x, b = blockIdx.z;
-  const int hk = blockIdx.y / n_groups, grp = blockIdx.y % n_groups;
-  const int h0 = hk * rep + grp * kRows;
-  const int nrows = min(kRows, rep - grp * kRows);
-  const int n = min(max(kv_len[b], 0), L);
-  const int c0 = c * kChunk;
-  if (c0 >= n) return;                       // past this sequence's cache
-  const int nk = min(kChunk, n - c0);        // valid keys of the chunk
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  // the chunk's K and V rows in one round of copies; rows past nk zero-filled
-  const T* kb = k + b * k_sb + c0 * k_ss + int64_t(hk) * HD;
-  const T* vb = v + b * v_sb + c0 * v_ss + int64_t(hk) * HD;
-#pragma unroll
-  for (int it = 0; it < CPR; ++it) {
-    const int idx = tid + it * kThreads;
-    const int r = idx / CPR, col = (idx % CPR) * VEC;
-    const bool ok = r < nk;
-    cp_async16(Ks + r * LD + col, ok ? kb + r * k_ss + col : kb, ok);
-    cp_async16(Vs + r * LD + col, ok ? vb + r * v_ss + col : vb, ok);
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = __shfl_sync(kFullMask, tid / 32, 0);
+  if (tid == 0) {
+    sm90::prefetch_map(&tm_k);
+    sm90::prefetch_map(&tm_v);
+    for (int w = 0; w < 2 * W; ++w) sm90::bar_init(k_full + w, 1);
+    sm90::bar_fence_init();
   }
-  cp_async_commit();
-
-  // the group's query rows in f32, pre-scaled to log2 units; pad rows zero
-  for (int idx = tid; idx < kRows * (HD / 4); idx += kThreads) {
-    const int r = idx / (HD / 4), col = (idx % (HD / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < nrows) {
-      x = load4(q + b * q_sb + int64_t(h0 + r) * HD + col);
-      x = make_float4(x.x * scale_log2, x.y * scale_log2, x.z * scale_log2, x.w * scale_log2);
-    }
-    *reinterpret_cast<float4*>(&Qs[r][col]) = x;
+  const int rank = sm90::cluster_rank();
+  const int unit = blockIdx.x / kCluster;    // (b, kv head, group)
+  const int grp = unit % n_groups, hk = unit / n_groups % n_kv, b = unit / n_groups / n_kv;
+  const int h0 = hk * rep + grp * R;
+  const int nrows = min(R, rep - grp * R);
+  const int len = kv_len[b];
+  // the group's query rows, read now so that their latency and kv_len's
+  // overlap; pad rows zero
+  constexpr int QI = (R * HD / 4 + kThreads - 1) / kThreads;
+  float4 qv[QI];
+#pragma unroll
+  for (int i = 0; i < QI; ++i) {
+    const int idx = tid + i * kThreads, r = idx / (HD / 4), col = (idx % (HD / 4)) * 4;
+    qv[i] = idx < R * (HD / 4) && r < nrows ? load4(q + b * q_sb + int64_t(h0 + r) * HD + col)
+                                            : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  cp_async_wait<0>();
-  __syncthreads();
+  const int n = min(max(len, 0), L);
+  // this rank's span: ceil(n / kCluster) keys rounded up to the box
+  const int span = ((n + kCluster - 1) / kCluster + kBox - 1) / kBox * kBox;
+  const int k0 = min(rank * span, n), k1 = min(k0 + span, n);
+  const int nb = (k1 - k0 + kBox - 1) / kBox;
+  unsigned char* kt = sm + S::kK + warp * S::kBoxBytes;   // this warp's stage
+  unsigned char* vt = sm + S::kV + warp * S::kBoxBytes;
+  float* pw = reinterpret_cast<float*>(sm + S::kP) + warp * R * kBox;   // this warp's P
+  // the K or V box i of the span into this warp's slot (one lane)
+  auto load = [&](const CUtensorMap* map, unsigned char* slot, uint64_t* bar, int i) {
+    sm90::bar_arrive_tx(bar, kBox * HD * int(sizeof(T)));
+    sm90::tma_load_tile<HD, kBox, T>(slot, map, bar, hk, k0 + i * kBox, b);
+  };
 
-  // scores: thread t <-> key c0 + t
-  float x[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) x[r] = 0.f;
-  const T* krow = Ks + tid * LD;
-#pragma unroll
-  for (int col = 0; col < HD; col += VEC) {
-    float kf[VEC];
-    widen16(krow + col, kf);
-#pragma unroll
-    for (int e = 0; e < VEC; e += 4) {
-      const float4 kv = make_float4(kf[e], kf[e + 1], kf[e + 2], kf[e + 3]);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        x[r] += dot4(*reinterpret_cast<const float4*>(&Qs[r][col + e]), kv);
-    }
+  __syncthreads();                             // the barriers are initialised
+  if (lane == 0 && warp < nb) {
+    load(&tm_k, kt, k_full + warp, warp);
+    load(&tm_v, vt, v_full + warp, warp);
   }
-
-  // the chunk's softmax state: a block max, then p = 2^(x - m) and a block sum
-  const bool valid = tid < nk;
+  // q in f32, pre-scaled to log2 units
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    x[r] = valid ? x[r] : -INFINITY;
-    const float mx = warp_max(x[r]);
-    if (lane == 0) red_m[warp][r] = mx;
+  for (int i = 0; i < QI; ++i) {
+    const int idx = tid + i * kThreads;
+    const float4 x = qv[i];
+    if (idx < R * (HD / 4))
+      *reinterpret_cast<float4*>(qs + idx * 4) =
+          make_float4(x.x * scale_log2, x.y * scale_log2, x.z * scale_log2, x.w * scale_log2);
   }
   __syncthreads();
-  float m[kRows], p[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = red_m[0][r];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) m[r] = fmaxf(m[r], red_m[w][r]);
-    p[r] = exp2f(x[r] - m[r]);           // key 0 is valid: m is finite; masked -> 0
-    const float sum = warp_sum(p[r]);
-    if (lane == 0) red_s[warp][r] = sum;
-  }
 
-  // P.V over the warp's own 32 keys; lane j holds p of key 32*warp + j
-  float acc[kRows][NG][4];
+  float m[R], s[R], acc[R][NG][4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+  for (int r = 0; r < R; ++r) {
+    m[r] = -INFINITY;
+    s[r] = 0.f;
 #pragma unroll
     for (int g = 0; g < NG; ++g) acc[r][g][0] = acc[r][g][1] = acc[r][g][2] = acc[r][g][3] = 0.f;
-  const int n_keys = min(32, nk - warp * 32);   // warp-uniform
-#pragma unroll 4
-  for (int j = 0; j < n_keys; ++j) {
-    const T* vrow = Vs + (warp * 32 + j) * LD;
-    float4 vv[NG];
+  }
+  for (int i = warp, it = 0; i < nb; i += W, ++it) {
+    sm90::bar_wait(k_full + warp, it & 1);
+    const int nk = min(kBox, k1 - (k0 + i * kBox));   // valid keys of the box, >= 1
+
+    // scores: lane j <-> key j of the box, each head's dot product in four
+    // independent chains (4-column groups round robin)
+    float xc[R][4];
 #pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      const int d = 4 * lane + 128 * g;
-      vv[g] = d < HD ? load4(vrow + d) : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+    for (int r = 0; r < R; ++r) xc[r][0] = xc[r][1] = xc[r][2] = xc[r][3] = 0.f;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float pj = __shfl_sync(kFullMask, p[r], j);
+    for (int col = 0; col < HD; col += VEC) {
+      float kf[VEC];
+      widen16(reinterpret_cast<const T*>(kt + Lay::template offset<kBox>(lane, col)), kf);
 #pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        acc[r][g][0] += pj * vv[g].x; acc[r][g][1] += pj * vv[g].y;
-        acc[r][g][2] += pj * vv[g].z; acc[r][g][3] += pj * vv[g].w;
+      for (int e = 0; e < VEC; e += 4) {
+        const float4 kv = make_float4(kf[e], kf[e + 1], kf[e + 2], kf[e + 3]);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          xc[r][(col + e) / 4 % 4] +=
+              dot4(*reinterpret_cast<const float4*>(qs + r * HD + col + e), kv);
       }
     }
-  }
+    __syncwarp();                               // every lane is done with K
+    if (lane == 0 && i + W < nb) {
+      sm90::fence_proxy_async();
+      load(&tm_k, kt, k_full + warp, i + W);
+    }
+
+    // the warp's online softmax: the box max, p = 2^(x - m), the rescale of
+    // the earlier sums (the box's first key is valid, so m is finite)
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+    for (int r = 0; r < R; ++r) {
+      const float x = (xc[r][0] + xc[r][1]) + (xc[r][2] + xc[r][3]);
+      const float xv = lane < nk ? x : -INFINITY;
+      const float m_new = fmaxf(m[r], warp_max(xv));
+      const float alpha = m[r] == -INFINITY ? 0.f : exp2f(m[r] - m_new);
+      const float p = lane < nk ? exp2f(xv - m_new) : 0.f;
+      s[r] = s[r] * alpha + p;
+      m[r] = m_new;
+      pw[r * kBox + lane] = p;
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        acc[r][g][0] *= alpha; acc[r][g][1] *= alpha;
+        acc[r][g][2] *= alpha; acc[r][g][3] *= alpha;
+      }
+    }
+
+    // the V rows of keys at and past kv_len zeroed, so that P.V runs over
+    // the whole box (their p is 0, and 0 * NaN is NaN)
+    sm90::bar_wait(v_full + warp, it & 1);
+    for (int idx = lane; idx < (kBox - nk) * (HD / VEC); idx += 32)
+      *reinterpret_cast<uint4*>(vt + Lay::template offset<kBox>(nk + idx / (HD / VEC),
+                                                               idx % (HD / VEC) * VEC)) =
+          make_uint4(0u, 0u, 0u, 0u);
+    __syncwarp();
+
+    // P.V over the box's keys, four p's of each head at a time; the lane
+    // owns dims 4*lane + 128*g
+#pragma unroll
+    for (int j0 = 0; j0 < kBox; j0 += 4) {
+      float4 p4[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) p4[r] = *reinterpret_cast<const float4*>(pw + r * kBox + j0);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = j0 + jj;
+        float4 vv[NG];
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          const int d = 4 * lane + 128 * g;
+          vv[g] = d < HD ? load4(reinterpret_cast<const T*>(vt + Lay::template offset<kBox>(j, d)))
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float pj = jj == 0 ? p4[r].x : jj == 1 ? p4[r].y : jj == 2 ? p4[r].z : p4[r].w;
+#pragma unroll
+          for (int g = 0; g < NG; ++g) {
+            acc[r][g][0] += pj * vv[g].x; acc[r][g][1] += pj * vv[g].y;
+            acc[r][g][2] += pj * vv[g].z; acc[r][g][3] += pj * vv[g].w;
+          }
+        }
+      }
+    }
+    __syncwarp();                               // every lane is done with V
+    if (lane == 0 && i + W < nb) {
+      sm90::fence_proxy_async();
+      load(&tm_v, vt, v_full + warp, i + W);
+    }
+  }
+
+  // the warps' states (where the stages were, once every warp is done with
+  // its stage), then the CTA's: its warps merged in order
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float sr = warp_sum(s[r]);
+    if (lane == 0) {
+      wms[(warp * R + r) * 2] = m[r];
+      wms[(warp * R + r) * 2 + 1] = sr;
+    }
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       const int d = 4 * lane + 128 * g;
       if (d < HD)
-        *reinterpret_cast<float4*>(&As[warp][r][d]) =
+        *reinterpret_cast<float4*>(wacc + (warp * R + r) * HD + d) =
             make_float4(acc[r][g][0], acc[r][g][1], acc[r][g][2], acc[r][g][3]);
     }
-  __syncthreads();
-
-  // the partial state of each query head, warps added in order
-  const int64_t slot = (int64_t(b) * n_heads + h0) * n_chunks + c;   // (b, h0, c)
-  for (int idx = tid; idx < nrows * HD; idx += kThreads) {
-    const int r = idx / HD, d = idx % HD;
-    float a = As[0][r][d];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) a += As[w][r][d];
-    part_acc[(slot + int64_t(r) * n_chunks) * HD + d] = a;
   }
-  if (tid == 0) {
+  __syncthreads();
+  for (int idx = tid; idx < R * HD; idx += kThreads) {
+    const int r = idx / HD, d = idx % HD;
+    float mx = -INFINITY;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r >= nrows) break;
-      float s = red_s[0][r];
+    for (int w = 0; w < W; ++w) mx = fmaxf(mx, wms[(w * R + r) * 2]);
+    float a = 0.f, sum = 0.f;
 #pragma unroll
-      for (int w = 1; w < kWarps; ++w) s += red_s[w][r];
-      part_ms[(slot + int64_t(r) * n_chunks) * 2] = m[r];
-      part_ms[(slot + int64_t(r) * n_chunks) * 2 + 1] = s;
+    for (int w = 0; w < W; ++w) {
+      const float mw = wms[(w * R + r) * 2];
+      const float wt = mw == -INFINITY ? 0.f : exp2f(mw - mx);
+      a += wacc[(w * R + r) * HD + d] * wt;
+      sum += wms[(w * R + r) * 2 + 1] * wt;
+    }
+    cacc[idx] = a;
+    if (d == 0) {
+      cms[2 * r] = mx;
+      cms[2 * r + 1] = sum;
     }
   }
-}
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kMergeThreads)
-decode_merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ms,
-                    const int* __restrict__ kv_len, T* __restrict__ o, int n_heads, int L,
-                    int n_chunks, int64_t o_sb) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int n = min(max(kv_len[b], 0), L);
-  const int nc = (n + kChunk - 1) / kChunk;   // the live chunks, all written
-  const int64_t slot = (int64_t(b) * n_heads + h) * n_chunks;
-  const float* ms = part_ms + slot * 2;
-  const float* acc = part_acc + slot * HD;
-  float mx = -INFINITY;
-  for (int c = 0; c < nc; ++c) mx = fmaxf(mx, ms[2 * c]);
-  float den = 0.f;
-  for (int c = 0; c < nc; ++c) den += ms[2 * c + 1] * exp2f(ms[2 * c] - mx);
-  const float inv = 1.f / fmaxf(den, 1e-30f);
-  for (int d = threadIdx.x; d < HD; d += kMergeThreads) {
-    float num = 0.f;
-    for (int c = 0; c < nc; ++c) num += acc[int64_t(c) * HD + d] * exp2f(ms[2 * c] - mx);
-    store1(o + b * o_sb + int64_t(h) * HD + d, num * inv);
+  // every rank's state is written; rank `rank` merges its dims of each head
+  sm90::cluster_sync();
+  for (int idx = tid; idx < nrows * DPR; idx += kThreads) {
+    const int r = idx / DPR, d = rank * DPR + idx % DPR;
+    // every rank's (m, s, acc[d]) first, all in flight at once
+    float mr[kCluster], sr[kCluster], ar[kCluster];
+#pragma unroll
+    for (int c = 0; c < kCluster; ++c) {
+      mr[c] = sm90::ld_cluster(cms + 2 * r, c);
+      sr[c] = sm90::ld_cluster(cms + 2 * r + 1, c);
+      ar[c] = sm90::ld_cluster(cacc + r * HD + d, c);
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < kCluster; ++c) mx = fmaxf(mx, mr[c]);
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCluster; ++c) {
+      const float wt = mr[c] == -INFINITY ? 0.f : exp2f(mr[c] - mx);
+      num += ar[c] * wt;
+      den += sr[c] * wt;
+    }
+    store1(o + b * o_sb + int64_t(h0 + r) * HD + d, num / fmaxf(den, 1e-30f));
   }
+  sm90::cluster_sync();                         // no CTA leaves while its state is read
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int R>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const int* kv_len,
-                   float* ws, int B, int Hq, int Hkv, int L, const long long* st,
-                   cudaStream_t stream) {
-  auto chunk = decode_chunk_kernel<T, HD>;
-  const size_t smem = chunk_smem_bytes<T, HD>();
-  cudaError_t err =
-      cudaFuncSetAttribute(chunk, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+                   int B, int Hq, int Hkv, int L, const long long* st, cudaStream_t stream) {
+  using S = DecodeSmem<T, HD, R>;
+  CUtensorMap tm_k, tm_v;
+  cudaError_t err = sm90::make_map<HD, T>(&tm_k, k, B, L, Hkv, st[1], st[2], kBox);
+  if (err == cudaSuccess) err = sm90::make_map<HD, T>(&tm_v, v, B, L, Hkv, st[3], st[4], kBox);
   if (err != cudaSuccess) return err;
-  const int rep = Hq / Hkv, n_groups = (rep + kRows - 1) / kRows;
-  const int n_chunks = (L + kChunk - 1) / kChunk;
-  float* part_acc = ws;
-  float* part_ms = ws + int64_t(B) * Hq * n_chunks * HD;
-  chunk<<<dim3(n_chunks, Hkv * n_groups, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kv_len,
-      part_acc, part_ms, Hq, rep, n_groups, L, n_chunks, st[0], st[1], st[2], st[3], st[4],
-      rsqrtf(float(HD)) * kLog2e);
-  err = cudaGetLastError();
+  auto kern = decode_kernel<T, HD, R>;
+  const size_t smem = S::kBytes;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  decode_merge_kernel<T, HD><<<dim3(Hq, B), kMergeThreads, 0, stream>>>(
-      part_acc, part_ms, kv_len, static_cast<T*>(o), Hq, L, n_chunks, st[5]);
+  const int rep = Hq / Hkv, n_groups = (rep + R - 1) / R;
+  const float scale_log2 = rsqrtf(float(HD)) * 1.4426950408889634f;
+  kern<<<kCluster * B * Hkv * n_groups, 32 * S::W, smem, stream>>>(
+      tm_k, tm_v, static_cast<const T*>(q), kv_len, static_cast<T*>(o), Hq, rep, n_groups, Hkv,
+      L, st[0], st[5], scale_log2);
   return cudaGetLastError();
+}
+
+// R: the least of 1, 2, 4, 8 that holds the GQA group (8 past that)
+template <typename T, int HD>
+cudaError_t launch_rows(const void* q, const void* k, const void* v, void* o, const int* kv_len,
+                        int B, int Hq, int Hkv, int L, const long long* st, cudaStream_t stream) {
+  const int rep = Hq / Hkv;
+  if (rep <= 1) return launch<T, HD, 1>(q, k, v, o, kv_len, B, Hq, Hkv, L, st, stream);
+  if (rep <= 2) return launch<T, HD, 2>(q, k, v, o, kv_len, B, Hq, Hkv, L, st, stream);
+  if (rep <= 4) return launch<T, HD, 4>(q, k, v, o, kv_len, B, Hq, Hkv, L, st, stream);
+  return launch<T, HD, 8>(q, k, v, o, kv_len, B, Hq, Hkv, L, st, stream);
 }
 
 template <typename T>
 cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, void* o,
-                     const int* kv_len, float* ws, int B, int Hq, int Hkv, int L,
-                     const long long* st, cudaStream_t stream) {
+                     const int* kv_len, int B, int Hq, int Hkv, int L, const long long* st,
+                     cudaStream_t stream) {
   switch (hd) {
 #define CASE(HD) \
-    case HD: return launch<T, HD>(q, k, v, o, kv_len, ws, B, Hq, Hkv, L, st, stream);
+    case HD: return launch_rows<T, HD>(q, k, v, o, kv_len, B, Hq, Hkv, L, st, stream);
     CASE(16) CASE(32) CASE(64) CASE(96) CASE(128) CASE(160)
 #undef CASE
     default: return cudaErrorInvalidValue;
@@ -289,22 +393,16 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, void* 
 
 // Strides are in elements: q and o batch strides, k/v batch and sequence
 // strides (head and feature dims dense).  kv_len is a device int32 (B,)
-// vector.  `workspace` holds B * Hq * ceil(L / chunk) * (hd + 2) floats, and
-// `chunk` must be this build's kChunk (the wrapper sizes the workspace from
-// it).  Returns cudaGetLastError() after the launches.
+// vector.  Returns cudaGetLastError() after the launch.
 extern "C" int decode_attention(const void* q, const void* k, const void* v, void* o,
-                                const void* kv_len, void* workspace, int B, int Hq,
-                                int Hkv, int L, int hd, int is_bf16, int chunk,
-                                long long q_sb, long long k_sb, long long k_ss,
-                                long long v_sb, long long v_ss, long long o_sb,
-                                void* stream) {
-  if (chunk != kChunk) return int(cudaErrorInvalidValue);
+                                const void* kv_len, int B, int Hq, int Hkv, int L, int hd,
+                                int is_bf16, long long q_sb, long long k_sb, long long k_ss,
+                                long long v_sb, long long v_ss, long long o_sb, void* stream) {
   const long long st[6] = {q_sb, k_sb, k_ss, v_sb, v_ss, o_sb};
   const int* lens = static_cast<const int*>(kv_len);
-  float* ws = static_cast<float*>(workspace);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(hd, q, k, v, o, lens, ws, B, Hq, Hkv, L, st, s)
-              : dispatch<float>(hd, q, k, v, o, lens, ws, B, Hq, Hkv, L, st, s);
+      is_bf16 ? dispatch<__nv_bfloat16>(hd, q, k, v, o, lens, B, Hq, Hkv, L, st, s)
+              : dispatch<float>(hd, q, k, v, o, lens, B, Hq, Hkv, L, st, s);
   return int(err);
 }

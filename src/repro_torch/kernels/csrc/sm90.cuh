@@ -1,15 +1,18 @@
-// Hopper (sm_90a) building blocks of the bf16 attention kernels, as inline
-// PTX: TMA tile loads into swizzled shared memory, mbarrier rings,
-// warpgroup matrix products (wgmma) and register hand-over (setmaxnreg);
-// on the host, the tensor maps the TMA loads read.
+// Hopper (sm_90a) building blocks of the attention kernels, as inline PTX:
+// TMA tile loads into swizzled shared memory, mbarrier rings, warpgroup
+// matrix products (wgmma), register hand-over (setmaxnreg) and the thread
+// block cluster's barrier and distributed shared memory; on the host, the
+// tensor maps the TMA loads read.
 //
-// Tiles.  A tile of R rows of one head (hd bf16 each) lies in shared memory
-// as hd / kCols sub-tiles of R x kCols, one TMA box each, written by TMA
-// with the widest swizzle whose span divides a row: 128 bytes for hd 64 and
-// 128, 64 bytes for hd 32, 96 and 160, 32 bytes for hd 16 (HeadLayout).  So
-// no head dim is padded, and the 16-byte chunks of 8 consecutive rows fall
-// in distinct bank groups.  Each sub-tile starts on a 1024-byte boundary,
-// where every swizzle pattern starts over.
+// Tiles.  A tile of R rows of one head (hd elements of T each: bf16 for the
+// wgmma kernels, bf16 or f32 for decode) lies in shared memory as hd / kCols
+// sub-tiles of R x kCols, one TMA box each, written by TMA with the widest
+// swizzle whose span divides a row: in bf16 128 bytes for hd 64 and 128, 64
+// bytes for hd 32, 96 and 160, 32 bytes for hd 16 (HeadLayout).  So no head
+// dim is padded, and the 16-byte chunks of 8 consecutive rows fall in
+// distinct bank groups (a thread per row reading chunk c of it reads
+// without conflicts: HeadLayout::offset).  Each sub-tile starts on a 1024-byte
+// boundary, where every swizzle pattern starts over.
 //
 // Products.  wgmma m64nNk16 (bf16 -> f32) of one warpgroup: 64 rows of A,
 // N columns of B.  A is read from shared memory K-major (desc_k) or from
@@ -30,10 +33,11 @@
 namespace repro {
 namespace sm90 {
 
-template <int HD>
+template <int HD, typename T = __nv_bfloat16>
 struct HeadLayout {
-  static constexpr int kSwizzle = (2 * HD) % 128 == 0 ? 128 : (2 * HD) % 64 == 0 ? 64 : 32;
-  static constexpr int kCols = kSwizzle / 2;     // bf16 columns of a sub-tile (a TMA box)
+  static constexpr int kRowBytes = HD * int(sizeof(T));
+  static constexpr int kSwizzle = kRowBytes % 128 == 0 ? 128 : kRowBytes % 64 == 0 ? 64 : 32;
+  static constexpr int kCols = kSwizzle / int(sizeof(T));  // columns of a sub-tile (a TMA box)
   static constexpr int kSubs = HD / kCols;       // sub-tiles of a row block
   static_assert(HD % kCols == 0 && HD % 16 == 0, "head dim in 16-column steps");
   // bytes of an R-row sub-tile (one box) and tile, every sub-tile on a
@@ -44,6 +48,18 @@ struct HeadLayout {
   }
   template <int R>
   __host__ __device__ static constexpr int tile_bytes() { return kSubs * sub_bytes<R>(); }
+  // byte offset of element (row, col) in a tile of R rows, as TMA's swizzle
+  // placed it: bits 4.. of the offset in the sub-tile XORed with bits 7..,
+  // which for a row pitch of kSwizzle bytes is the column's offset XORed
+  // with row_xor(row)
+  template <int R>
+  __host__ __device__ static constexpr int offset(int row, int col) {
+    return (col / kCols) * sub_bytes<R>() + row * kSwizzle +
+           (((col % kCols) * int(sizeof(T))) ^ row_xor(row));
+  }
+  __host__ __device__ static constexpr int row_xor(int row) {
+    return (((row * kSwizzle) >> 7) & (kSwizzle / 16 - 1)) << 4;
+  }
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -97,12 +113,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// Fetches a tensor map (a __grid_constant__ kernel parameter) ahead of its
+// first TMA load.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 // The R-row tile of one head at sequence row `row`: every sub-tile of it,
-// one box each, into `dst` (a HeadLayout<HD>::tile_bytes<R>() region).
-template <int HD, int R>
+// one box each, into `dst` (a HeadLayout<HD, T>::tile_bytes<R>() region).
+template <int HD, int R, typename T = __nv_bfloat16>
 __device__ __forceinline__ void tma_load_tile(unsigned char* dst, const CUtensorMap* map,
                                               uint64_t* bar, int head, int row, int batch) {
-  using L = HeadLayout<HD>;
+  using L = HeadLayout<HD, T>;
 #pragma unroll
   for (int j = 0; j < L::kSubs; ++j)
     tma_load(dst + j * L::template sub_bytes<R>(), map, bar, j * L::kCols, head, row, batch);
@@ -242,8 +264,7 @@ struct Wgmma<32> {
           "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
           "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-  }
-};
+  }};
 
 template <>
 struct Wgmma<64> {
@@ -529,6 +550,40 @@ struct Wgmma<160> {
   }
 };
 
+// Orders this thread's generic-proxy accesses of shared memory before the
+// async proxy's (TMA) writes that follow: a stage read by ld.shared is
+// refilled by TMA.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ----------------------------------------------------------------- cluster
+// This CTA's rank in its thread block cluster.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return int(r);
+}
+
+// Every thread of every CTA of the cluster arrives, then waits: shared
+// memory written before it is visible to the cluster's reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The f32 at the address of `p` in the shared memory of the cluster's CTA
+// `rank` (distributed shared memory: every CTA of the kernel lays out its
+// shared memory alike).
+__device__ __forceinline__ float ld_cluster(const float* p, int rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
 // ---------------------------------------------------------- named barriers
 // bar.sync / bar.arrive on hardware barrier `id` (1..15; 0 is __syncthreads)
 // counting `threads` threads: sync waits for them all, arrive does not wait.
@@ -638,26 +693,30 @@ inline cudaError_t sm_count(int* sms) {
              ? cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device) : err;
 }
 
-// The tensor map of a (B, S, H, hd) bf16 view with dense head and feature
-// dims and batch / sequence strides sb / ss (elements), read in boxes of
-// `rows` rows x HeadLayout<HD>::kCols columns of one head.  Rows at and
-// past `rows_valid` (<= S) read as zeros.  Built for every launch: the
-// pipeline's rank threads launch on one card at once.
-template <int HD>
+// The tensor map of a (B, S, H, hd) view of T (bf16 or f32) with dense head
+// and feature dims and batch / sequence strides sb / ss (elements), read in
+// boxes of `rows` rows x HeadLayout<HD, T>::kCols columns of one head.  Rows
+// at and past `rows_valid` (<= S) read as zeros.  Built for every launch:
+// the pipeline's rank threads launch on one card at once.
+template <int HD, typename T = __nv_bfloat16>
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int rows_valid, int H,
                             long long sb, long long ss, int rows) {
-  using L = HeadLayout<HD>;
+  using L = HeadLayout<HD, T>;
+  constexpr cuuint64_t elt = sizeof(T);
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {cuuint64_t(HD), cuuint64_t(H), cuuint64_t(rows_valid),
                               cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(HD) * 2, cuuint64_t(ss) * 2, cuuint64_t(sb) * 2};
+  const cuuint64_t strides[3] = {cuuint64_t(HD) * elt, cuuint64_t(ss) * elt,
+                                 cuuint64_t(sb) * elt};
   const cuuint32_t box[4] = {cuuint32_t(L::kCols), 1, cuuint32_t(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle = L::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : L::kSwizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                          : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+  const CUtensorMapDataType type =
+      sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult r = encode(map, type, 4, const_cast<void*>(base),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -25,41 +25,51 @@
 // toward zero where the TPU code floors.  ctx is a runtime argument, so one
 // build serves every offset.
 //
-// dq_kernel_bf16 and dkv_kernel_bf16 (bf16 inputs): every product on the
-// tensor cores, bf16 operands and f32 accumulators.  Masked probabilities are
-// selected as 0, never multiplied: 0 * NaN is NaN in a product, and the
-// tiles are zero-filled past l and past the keys' frontier, so no stale
-// shared memory meets a 0.  Rounding P, P^T and dS to bf16 (dS^T to a bf16
-// pair) are the numerical changes from the f32 SIMT kernels.
+// dq_kernel_bf16 and dkv_kernel_bf16 (bf16 inputs): warp-specialised
+// sm_90a kernels, every product a wgmma on bf16 operands with f32
+// accumulators, fed by TMA through mbarrier rings (sm90.cuh).  Masked
+// probabilities are selected as 0, never multiplied: 0 * NaN is NaN in a
+// product, and the tiles are zero-filled past l and past the keys'
+// frontier, so no stale shared memory meets a 0.  Rounding P^T and dS to
+// bf16 (dS^T to a bf16 pair) are the numerical changes from the f32 SIMT
+// kernels.  Both are persistent: at most one block per SM, each walking its
+// share of the numbered work units, dealt out in a zigzag (pass k of block
+// x takes number k * grid + x, or k * grid + grid - 1 - x on odd passes), so
+// every block's share is about the same.  A block has two consumer
+// warpgroups and one producer warpgroup, of which one warp works;
+// setmaxnreg hands the producer's registers to the consumers (24 / 240).
 //
-// dq_kernel_bf16 (mma.m16n8k16 and cp.async, sm_80+ PTX; mma.cuh): a
-// flash-forward tiling with P.V replaced by two products.
-//  * one block per (b, hq, 64-row q tile), 4 warps of 16 query rows; q tiles
-//    are issued longest causal frontier first (grid z reversed).  Q and dO
-//    are staged once; 64-key K and V tiles arrive through a two-stage
-//    cp.async ring up to the tile's frontier ctx + min(q0 + 64, l); each warp
-//    skips the tiles past its own 16 rows' frontier.  Tiles stay bf16 in
-//    shared memory, rows padded by 8 so the ldmatrix loads are free of bank
-//    conflicts;
-//  * the A fragments of Q and dO are read from shared memory (ldmatrix) at
-//    each k-step, not held: the dQ accumulator (hd f32 registers a lane) and
-//    the S and dP tiles (64 more) leave no room for them at hd 128, where
-//    holding Q alone spilled (chip_variants.py); lse (in log2 units) and
-//    delta of the warp's rows are in registers;
-//  * S = Q.K^T and dP = dO.V^T with K and V as "col" B operands (ldmatrix);
-//    P = exp2(S*scale*log2e - lse*log2e), masked only in tiles that cross
-//    the diagonal or hold rows at and past l; dS = P * (dP - delta) in f32;
-//    dQ += dS.K with dS rounded to bf16 once and reused from registers as the
-//    A operand (K through ldmatrix.trans).  One rounding is enough here: K
-//    is not scaled, so no large rows cancel as Q's do in dK.  dQ is scaled
-//    once, at the end.
+// dq_kernel_bf16: the forward's tiling (terapipe_attention_fwd.cu), with
+// P.V replaced by two products.
+//  * units are (b, hq, 128-row q tile), numbered longest causal frontier
+//    first; warpgroup w owns the tile's rows 64w .. 64w + 63;
+//  * the producer loads a unit's Q and dO once by TMA (their maps end at l),
+//    the next unit's under this one's last dS.K product and stores, and
+//    64-key K and V tiles (32 at hd 160) through a three-stage ring with
+//    "full" and "empty" mbarriers; K and V end at ctx + l in their maps, so
+//    the stale tail reads as zeros.  The ring stops at the tile's frontier
+//    ctx + min(q0 + 128, l), and each warpgroup at its own 64 rows';
+//  * lse (in log2 units) and delta of a thread's two rows sit in registers;
+//  * per K/V tile: S = Q.K^T and dP = dO.V^T (both operands K-major in
+//    shared memory); P = exp2(S*scale*log2e - lse*log2e), masked only in
+//    tiles that cross the diagonal or hold rows at and past l; dS = P * (dP
+//    - delta) in f32, rounded to bf16 once; dQ += dS.K with dS the register
+//    A operand and K read MN-major.  One rounding is enough here: K is not
+//    scaled, so no large rows cancel as Q's do in dK.  V is freed once dP is
+//    done, K once dS.K is;
+//  * S and dP of tile j + 1 are issued before dQ += dS.K of tile j, so that
+//    product runs under the next tile's exponentials (dQ 64, S and dP 32
+//    each, dS 16 packed: ~150 of a thread's 240 registers at hd 128);
+//    where both groups walk as many tiles they take turns to issue
+//    (ping-pong, named barriers 1 and 2), as the forward does;
+//  * dQ is scaled once, at the end, and stored from registers; rows at and
+//    past l are never written.  It issues exactly the bound's 6*hd FLOPs a
+//    pair, so 100% of the bound is its ceiling.
 //
-// dkv_kernel_bf16 (sm_90a: warp-specialised, wgmma fed by TMA; sm90.cuh):
-//  * persistent: at most one block per SM, each walking its share of the
-//    (b, hkv, 128-key tile) work, numbered key tile first (the low tiles,
-//    which walk the most query rows, first) and dealt out in a zigzag.  A
-//    block has two consumer warpgroups of 64 keys and one producer warp (of
-//    a producer warpgroup).  A unit walks the rep query heads of its group
+// dkv_kernel_bf16:
+//  * units are (b, hkv, 128-key tile), numbered key tile first (the low
+//    tiles, which walk the most query rows, first); warpgroup w owns the
+//    unit's keys 64w .. 64w + 63.  A unit walks the rep query heads of its group
 //    and, for each, the q tiles from the first one that reaches the key
 //    tile; a warpgroup skips the tiles that do not reach its own 64 keys.
 //    A unit wholly past ctx + l only writes zeros;
@@ -69,9 +79,8 @@
 //    units) and delta staged by the producer warp's 32 lanes beside them.
 //    Both consumer warpgroups read each Q/dO tile as the B operand.  K and V
 //    end at ctx + l in their tensor maps, Q and dO at l: TMA fills zeros;
-//  * setmaxnreg hands the producer's registers to the consumers (24 / 240):
-//    dK and dV accumulate in f32 registers (hd / 2 + hd / 2 a thread) beside
-//    S^T and dP^T (BQ / 2 each);
+//  * dK and dV accumulate in f32 registers (hd / 2 + hd / 2 a thread)
+//    beside S^T and dP^T (BQ / 2 each);
 //  * the two groups take turns to issue their products (ping-pong, two
 //    named barriers; two turns an item, taken by both groups for every
 //    item), so one group's exponentials run under the other's products;
@@ -86,8 +95,8 @@
 //    (logits x30).  So the kernel issues 10*hd FLOPs a pair against the
 //    bound's 8*hd: 80% of the bound is its ceiling.  dK is scaled once, at
 //    the end, and written with dV by the one warpgroup that owns the keys.
-// The tile walk of dkv_kernel_bf16 is stated in Python in
-// kernels/tile_walk.py.
+// The tile walks of dq_kernel_bf16 (tile_walk.dq_walk) and dkv_kernel_bf16
+// (tile_walk.dkv_walk) are stated in Python in kernels/tile_walk.py.
 //
 // dq_kernel_f32 and dkv_kernel_f32 (f32 inputs): f32 SIMT FMAs out of
 // shared memory; the tensor cores have no f32 product of f32 accuracy:
@@ -105,7 +114,6 @@
 //    accumulating products each lane owns the dims d = lane + 32*i, with the
 //    per-pair P or dS broadcast by shuffle.
 #include "common.cuh"
-#include "mma.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -113,183 +121,304 @@ namespace {
 using namespace repro;
 using bf16 = __nv_bfloat16;
 
-// ------------------------------------------------------------- bf16 dQ, mma
-constexpr int kMmaBK = 64;              // keys per K/V tile
-constexpr int kMmaBQ = 64;              // query rows per block (16 per warp)
-constexpr int kMmaThreads = 128;
+// ------------------------------------------------- shared by dQ and dK/dV
+constexpr int kWsThreads = 384;         // consumer warpgroups 0 and 1, the producer's 2
+constexpr int kProducerRegs = 24;       // setmaxnreg: 24 x 128 + 240 x 256 = 384 x 168
+constexpr int kConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// --------------------------------------------------- bf16 dQ, wgmma + TMA
+constexpr int kDqBQ = 128;              // query rows per unit: two consumer warpgroups of 64
+constexpr int kDqStages = 3;            // K/V tiles in flight
+
+// keys per streamed K/V tile (tile_walk.dq_bk): 64, and 32 at hd 160, where
+// the dQ accumulator (hd / 2 f32 registers a thread) leaves less room for S
+// and dP
 template <int HD>
-constexpr size_t dq_smem_bytes() {
-  return size_t(2 * kMmaBQ + 2 * 2 * kMmaBK) * (HD + kPad) * sizeof(bf16);
-}
+constexpr int kDqBK = HD <= 128 ? 64 : 32;
+
+// Shared memory: Q and dO (128 rows), K[stage] and V[stage] (BK rows), then
+// the barriers; every tile in HeadLayout<HD>'s swizzled sub-tiles.
+template <int HD>
+struct DqSmem {
+  using L = sm90::HeadLayout<HD>;
+  static constexpr int BK = kDqBK<HD>;
+  static constexpr int kQt = L::template tile_bytes<kDqBQ>();
+  static constexpr int kKV = L::template tile_bytes<BK>();
+  static constexpr int kDo = kQt;
+  static constexpr int kK = 2 * kQt;
+  static constexpr int kV = kK + kDqStages * kKV;
+  static constexpr int kBars = kV + kDqStages * kKV;
+  static constexpr size_t kBytes = kBars + 8 * (2 + 4 * kDqStages) + 1024;
+};
 
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads)
-dq_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(kWsThreads, 1)
+dq_kernel_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dq, int l, int n_heads, int rep, int ctx, int64_t q_sb,
-               int64_t q_ss, int64_t k_sb, int64_t k_ss, int64_t v_sb, int64_t v_ss,
-               int64_t do_sb, int64_t do_ss, int64_t dq_sb, int64_t dq_ss, float scale,
-               float scale_log2) {
-  constexpr int LD = HD + kPad;
+               bf16* __restrict__ dq, int l, int n_heads, int rep, int ctx, int batch,
+               int64_t dq_sb, int64_t dq_ss, float scale, float scale_log2) {
+  using S = DqSmem<HD>;
+  constexpr int BK = S::BK;
   constexpr int KT = HD / 16;           // k-steps of Q.K^T and dO.V^T
-  constexpr int NS = kMmaBK / 8;        // n-tiles of S and dP (8 keys each)
-  constexpr int NO = HD / 8;            // n-tiles of dQ (8 dims each)
-  extern __shared__ uint4 smem_u4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_u4);
-  bf16* dOs = Qs + kMmaBQ * LD;
-  bf16* Ks = dOs + kMmaBQ * LD;         // [stage][kMmaBK][LD]
-  bf16* Vs = Ks + 2 * kMmaBK * LD;
+  constexpr int NS = BK / 8;            // column groups of S and dP (8 keys each)
+  constexpr int NO = HD / 8;            // column groups of dQ (8 dims each)
+  constexpr int PK = BK / 16;           // k-steps of dS.K
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = sm90::smem_1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + S::kBars);   // Q and dO have landed
+  uint64_t* q_free = q_full + 1;          // all 8 consumer warps are done with Q and dO
+  uint64_t* k_full = q_free + 1;          // [stage]: the K tile has landed
+  uint64_t* v_full = k_full + kDqStages;  // [stage]: the V tile has landed
+  uint64_t* k_free = v_full + kDqStages;  // [stage]: all 8 consumer warps are done with K
+  uint64_t* v_free = k_free + kDqStages;  // [stage]: ... with V
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int iq = gridDim.z - 1 - blockIdx.z;   // longest frontier first
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const LaneOffsets lo(lane);
-  const int q0 = iq * kMmaBQ;
-  const int kv_end = ctx + min(q0 + kMmaBQ, l);   // causal frontier of this q tile
-  const int n_tiles = (kv_end + kMmaBK - 1) / kMmaBK;
-  const int w0 = q0 + warp * 16;                 // first row of this warp
-  const bool live = w0 < l;                      // the warp has rows to compute
-  const int w_end = ctx + min(w0 + 16, l);       // this warp's own frontier
-
-  const bf16* kb = k + b * k_sb + int64_t(h / rep) * HD;
-  const bf16* vb = v + b * v_sb + int64_t(h / rep) * HD;
-  auto load_kv = [&](int tile) {
-    const int t0 = tile * kMmaBK, stage = tile & 1;
-    cp_async_tile<kMmaBK, HD, kMmaThreads>(Ks + stage * kMmaBK * LD, kb + t0 * k_ss, k_ss,
-                                           kv_end - t0, tid);
-    cp_async_tile<kMmaBK, HD, kMmaThreads>(Vs + stage * kMmaBK * LD, vb + t0 * v_ss, v_ss,
-                                           kv_end - t0, tid);
+  // Persistent, as the forward: the (b, hq, 128-row q tile) units are
+  // numbered longest causal frontier first, and pass k of block x takes
+  // number k * grid + x, or k * grid + grid - 1 - x on odd passes (a
+  // zigzag); the ring's stages and phases run on across a block's units.
+  const int nq = (l + kDqBQ - 1) / kDqBQ;
+  const int per_q = n_heads * batch;
+  const int n_items = nq * per_q;
+  struct Item {
+    int h, b, q0, n_tiles;
   };
-  cp_async_tile<kMmaBQ, HD, kMmaThreads>(Qs, q + b * q_sb + q0 * q_ss + int64_t(h) * HD,
-                                         q_ss, l - q0, tid);
-  cp_async_tile<kMmaBQ, HD, kMmaThreads>(dOs, dout + b * do_sb + q0 * do_ss + int64_t(h) * HD,
-                                         do_ss, l - q0, tid);
-  load_kv(0);
-  cp_async_commit();
+  auto number = [&](int k) {
+    return k * int(gridDim.x) + ((k & 1) ? int(gridDim.x) - 1 - int(blockIdx.x) : int(blockIdx.x));
+  };
+  auto item = [&](int i) {
+    const int iq = nq - 1 - i / per_q;
+    const int q0 = iq * kDqBQ;
+    const int kv_end = ctx + min(q0 + kDqBQ, l);   // causal frontier of this q tile
+    return Item{i % per_q % n_heads, i % per_q / n_heads, q0, (kv_end + BK - 1) / BK};
+  };
+  // the warpgroup, broadcast from lane 0 so the compiler sees it is warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, int(threadIdx.x) / 128, 0);
 
-  // lse (in log2 units) and delta of rows g and g + 8; 0 for pad rows, which
-  // the mask covers
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = w0 + g + 8 * r;
-    const int64_t at = (int64_t(b) * n_heads + h) * l + row;
-    lse2[r] = row < l ? lse[at] * kLog2e : 0.f;
-    dl[r] = row < l ? delta[at] : 0.f;
+  if (threadIdx.x == 0) {
+    sm90::bar_init(q_full, 1);
+    sm90::bar_init(q_free, 8);
+    for (int s = 0; s < kDqStages; ++s) {
+      sm90::bar_init(k_full + s, 1);
+      sm90::bar_init(v_full + s, 1);
+      sm90::bar_init(k_free + s, 8);
+      sm90::bar_init(v_free + s, 8);
+    }
+    sm90::bar_fence_init();
   }
+  __syncthreads();
 
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    if (it + 1 < n_tiles) load_kv(it + 1);   // into the stage freed last iteration
-    cp_async_commit();
-    cp_async_wait<1>();                      // tile it (and Q, dO) have landed
-    __syncthreads();
-    const int t0 = it * kMmaBK;
-    if (live && t0 < w_end) {
-      const bf16* Kt = Ks + (it & 1) * kMmaBK * LD;
-      const bf16* Vt = Vs + (it & 1) * kMmaBK * LD;
-
-      // S = Q.K^T (K as the "col" B operand)
-      float sc[NS][4];
-#pragma unroll
-      for (int j = 0; j < NS; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        uint32_t qa[4];
-        ldmatrix_x4(qa, Qs + (warp * 16 + lo.a_row) * LD + kk * 16 + lo.a_col);
-#pragma unroll
-        for (int jp = 0; jp < NS / 2; ++jp) {
-          uint32_t bk[4];
-          ldmatrix_x4(bk, Kt + (jp * 16 + lo.b_row) * LD + kk * 16 + lo.b_col);
-          mma_bf16(sc[2 * jp], qa, bk[0], bk[1]);
-          mma_bf16(sc[2 * jp + 1], qa, bk[2], bk[3]);
-        }
-      }
-
-      // P = exp2(S*scale*log2e - lse*log2e); the mask selects 0 only where
-      // the tile crosses the diagonal of this warp's rows or holds rows at
-      // and past l
-      const bool edge = t0 + kMmaBK - 1 > ctx + w0 || w0 + 16 > l;
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float p = exp2f(sc[j][e] * scale_log2 - lse2[e >> 1]);
-          if (edge) {
-            const int row = w0 + g + (e >> 1) * 8;
-            const int kpos = t0 + j * 8 + 2 * t4 + (e & 1);
-            if (!(row < l && kpos <= ctx + row)) p = 0.f;
-          }
-          sc[j][e] = p;
-        }
-      }
-
-      // dP = dO.V^T
-      float dpt[NS][4];
-#pragma unroll
-      for (int j = 0; j < NS; ++j) dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        uint32_t da[4];
-        ldmatrix_x4(da, dOs + (warp * 16 + lo.a_row) * LD + kk * 16 + lo.a_col);
-#pragma unroll
-        for (int jp = 0; jp < NS / 2; ++jp) {
-          uint32_t bv[4];
-          ldmatrix_x4(bv, Vt + (jp * 16 + lo.b_row) * LD + kk * 16 + lo.b_col);
-          mma_bf16(dpt[2 * jp], da, bv[0], bv[1]);
-          mma_bf16(dpt[2 * jp + 1], da, bv[2], bv[3]);
-        }
-      }
-
-      // dS = P * (dP - delta), in f32
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[j][e] *= dpt[j][e] - dl[e >> 1];
-
-      // dQ += dS.K: dS from registers, rounded to bf16 once (K is not scaled,
-      // so no large rows cancel as Q's do in dK), K through ldmatrix.trans
-#pragma unroll
-      for (int kk = 0; kk < NS / 2; ++kk) {
-        uint32_t dsa[4];
-        pack_a(dsa, sc[2 * kk], sc[2 * kk + 1]);
-#pragma unroll
-        for (int dp = 0; dp < HD / 16; ++dp) {
-          uint32_t bk[4];
-          ldmatrix_x4_trans(bk, Kt + (kk * 16 + lo.bt_row) * LD + dp * 16 + lo.bt_col);
-          mma_bf16(acc[2 * dp], dsa, bk[0], bk[1]);
-          mma_bf16(acc[2 * dp + 1], dsa, bk[2], bk[3]);
+  if (wg == 2) {
+    // producer: one thread keeps the Q/dO buffer and the K/V ring full; the
+    // rest of the group idles
+    sm90::regs_dec<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      int c = 0;                                   // K/V tiles loaded so far
+      for (int n = 0; number(n) < n_items; ++n) {
+        const Item it = item(number(n));
+        const int hk = it.h / rep;
+        sm90::bar_wait(q_free, (n & 1) ^ 1);
+        sm90::bar_arrive_tx(q_full, 2 * kDqBQ * HD * 2);
+        sm90::tma_load_tile<HD, kDqBQ>(sm, &tm_q, q_full, it.h, it.q0, it.b);
+        sm90::tma_load_tile<HD, kDqBQ>(sm + S::kDo, &tm_do, q_full, it.h, it.q0, it.b);
+        for (int t = 0; t < it.n_tiles; ++t, ++c) {
+          const int s = c % kDqStages;
+          const uint32_t free_ph = ((c / kDqStages) & 1) ^ 1;
+          sm90::bar_wait(k_free + s, free_ph);
+          sm90::bar_arrive_tx(k_full + s, BK * HD * 2);
+          sm90::tma_load_tile<HD, BK>(sm + S::kK + s * S::kKV, &tm_k, k_full + s, hk, t * BK,
+                                      it.b);
+          sm90::bar_wait(v_free + s, free_ph);
+          sm90::bar_arrive_tx(v_full + s, BK * HD * 2);
+          sm90::tma_load_tile<HD, BK>(sm + S::kV + s * S::kKV, &tm_v, v_full + s, hk, t * BK,
+                                      it.b);
         }
       }
     }
-    __syncthreads();   // every warp is done with stage it & 1 before it is refilled
-  }
+  } else {
+    // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 of each unit
+    sm90::regs_inc<kConsumerRegs>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const uint32_t base = sm90::smem_addr(sm);
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) sm90::bar_arrive(bar);
+    };
+    float sc[4 * NS];                              // S, then dS, of rows r0, r0 + 8
+    float dp[4 * NS];                              // dP
+    float acc[HD / 2];                             // dQ of rows r0, r0 + 8
+    uint32_t dsa[PK][4];                           // dS in bf16, the A operand of dS.K
+    int c = 0;                                     // K/V tiles consumed so far
+
+    for (int n = 0; number(n) < n_items; ++n) {
+      const Item itm = item(number(n));
+      const int h = itm.h, b = itm.b, q0 = itm.q0, n_tiles = itm.n_tiles;
+      const int w0 = q0 + 64 * wg;
+      const int w_end = ctx + min(w0 + 64, l);     // this group's own causal frontier
+      // the tiles it computes: a prefix of the unit's, and one (tile 0, on
+      // zero rows, storing nothing) for a group whose rows all lie past l,
+      // so that no product sits on a path the compiler sees as divergent
+      auto tiles_of = [&](int first_row, int end) {
+        return first_row < l ? min((end + BK - 1) / BK, n_tiles) : 1;
+      };
+      const int n_w = tiles_of(w0, w_end);
+      // Ping-pong, as the forward: where both groups walk as many tiles,
+      // they take turns to issue their products (named barriers 1 and 2),
+      // so one group's exponentials run under the other's products.
+      const int w0_other = q0 + 64 * (1 - wg);
+      const bool pingpong = n_w == tiles_of(w0_other, ctx + min(w0_other + 64, l));
+      auto turn_wait = [&] {
+        if (pingpong) sm90::named_sync(1 + wg, 256);
+      };
+      auto turn_pass = [&] {
+        if (pingpong) sm90::named_arrive(2 - wg, 256);
+      };
+      const int r0 = w0 + 16 * warp + g;           // this thread's rows: r0 and r0 + 8
+      // lse (in log2 units) and delta of rows r0 and r0 + 8; 0 for rows at
+      // and past l, which the mask covers
+      float lse2[2], dl[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        const int64_t at = (int64_t(b) * n_heads + h) * l + row;
+        lse2[r] = row < l ? lse[at] * kLog2e : 0.f;
+        dl[r] = row < l ? delta[at] : 0.f;
+      }
+      // S_t = Q.K_t^T and dP_t = dO.V_t^T, all operands K-major in shared
+      // memory, one commit group
+      auto issue_sdp = [&](int t) {
+        const int st = (c + t) % kDqStages;
+        const uint32_t k_base = base + S::kK + st * S::kKV;
+        const uint32_t v_base = base + S::kV + st * S::kKV;
+        sm90::Wgmma<BK>::ss0(sc, sm90::desc_k<HD, kDqBQ>(base, 64 * wg, 0),
+                             sm90::desc_k<HD, BK>(k_base, 0, 0));
+#pragma unroll
+        for (int kk = 1; kk < KT; ++kk)
+          sm90::Wgmma<BK>::ss(sc, sm90::desc_k<HD, kDqBQ>(base, 64 * wg, kk),
+                              sm90::desc_k<HD, BK>(k_base, 0, kk), 1);
+        sm90::Wgmma<BK>::ss0(dp, sm90::desc_k<HD, kDqBQ>(base + S::kDo, 64 * wg, 0),
+                             sm90::desc_k<HD, BK>(v_base, 0, 0));
+#pragma unroll
+        for (int kk = 1; kk < KT; ++kk)
+          sm90::Wgmma<BK>::ss(dp, sm90::desc_k<HD, kDqBQ>(base + S::kDo, 64 * wg, kk),
+                              sm90::desc_k<HD, BK>(v_base, 0, kk), 1);
+        sm90::wgmma_commit();
+      };
+      // dQ += dS_t.K_t: dS in bf16 from registers, K MN-major
+      auto issue_dq = [&](int t) {
+        const uint32_t k_base = base + S::kK + ((c + t) % kDqStages) * S::kKV;
+#pragma unroll
+        for (int kk = 0; kk < PK; ++kk)
+          sm90::Wgmma<HD>::rs(acc, dsa[kk], sm90::desc_mn<HD, BK>(k_base, kk), 1);
+        sm90::wgmma_commit();
+      };
+      // P = 2^(scale*log2e*S - lse*log2e), selected as 0 where a key is past
+      // a row's frontier or the row at and past l (only in tiles that cross
+      // the diagonal of this group's rows or hold such rows), then dS = P *
+      // (dP - delta) in f32, in place of S
+      auto grads = [&](int t) {
+        const int t0 = t * BK;
+        const bool edge = t0 + BK - 1 > ctx + w0 || w0 + 64 > l;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = sm90::ex2(fmaf(sc[4 * j + e], scale_log2, -lse2[e >> 1]));
+            if (edge) {
+              const int row = r0 + (e >> 1) * 8;
+              const int kpos = t0 + j * 8 + 2 * t4 + (e & 1);
+              if (!(row < l && kpos <= ctx + row)) p = 0.f;
+            }
+            sc[4 * j + e] = p * (dp[4 * j + e] - dl[e >> 1]);
+          }
+        }
+      };
+      // dS rounded to bf16 once: K is not scaled, so no large rows cancel
+      // as Q's do in dK
+      auto pack = [&] {
+#pragma unroll
+        for (int kk = 0; kk < PK; ++kk) sm90::pack_a(dsa[kk], sc + 8 * kk);
+      };
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = w0 + g + 8 * r;
-    if (row >= l) continue;
-    bf16* out = dq + b * dq_sb + row * dq_ss + int64_t(h) * HD + 2 * t4;
+      for (int k = 0; k < HD / 2; ++k) acc[k] = 0.f;
+
+      if (wg == 1) turn_pass();
+      sm90::bar_wait(q_full, n & 1);
+      sm90::bar_wait(k_full + c % kDqStages, (c / kDqStages) & 1);
+      sm90::bar_wait(v_full + c % kDqStages, (c / kDqStages) & 1);
+      turn_wait();
+      sm90::wgmma_fence();
+      issue_sdp(0);
+      turn_pass();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(dp);
+      release(v_free + c % kDqStages);
+      grads(0);
+      pack();
+      for (int t = 1; t < n_w; ++t) {
+        // S_t and dP_t, then dQ += dS_(t-1).K_(t-1), whose product runs
+        // under this tile's exponentials
+        const int st = (c + t) % kDqStages;
+        const uint32_t ph = ((c + t) / kDqStages) & 1;
+        sm90::bar_wait(k_full + st, ph);
+        sm90::bar_wait(v_full + st, ph);
+        turn_wait();
+        sm90::wgmma_fence();
+        issue_sdp(t);
+        issue_dq(t - 1);
+        turn_pass();
+        sm90::wgmma_wait<1>();
+        sm90::fence_regs(sc);
+        sm90::fence_regs(dp);
+        release(v_free + st);
+        grads(t);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+        sm90::fence_regs(dsa);
+        release(k_free + (c + t - 1) % kDqStages);
+        pack();
+      }
+      release(q_free);                             // every S and dP of this unit is done
+      turn_wait();                                 // dQ += dS.K of the last tile
+      sm90::wgmma_fence();
+      issue_dq(n_w - 1);
+      if (wg == 0) turn_pass();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      sm90::fence_regs(dsa);
+      release(k_free + (c + n_w - 1) % kDqStages);
+      for (int t = n_w; t < n_tiles; ++t) {        // tiles past this group's frontier
+        const int st = (c + t) % kDqStages;
+        const uint32_t ph = ((c + t) / kDqStages) & 1;
+        sm90::bar_wait(k_full + st, ph);
+        release(k_free + st);
+        sm90::bar_wait(v_full + st, ph);
+        release(v_free + st);
+      }
+      c += n_tiles;
+
+      // dQ scaled once, stored from registers; rows at and past l never written
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(out + n * 8) =
-          pack_bf16(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        if (row >= l) continue;
+        bf16* out = dq + b * dq_sb + row * dq_ss + int64_t(h) * HD + 2 * t4;
+#pragma unroll
+        for (int k = 0; k < NO; ++k)
+          *reinterpret_cast<uint32_t*>(out + k * 8) =
+              sm90::pack_bf16x2(acc[4 * k + 2 * r] * scale, acc[4 * k + 2 * r + 1] * scale);
+      }
+    }
   }
 }
 
 // ----------------------------------------------- bf16 dK/dV, wgmma + TMA
 constexpr int kDkvBK = 128;             // keys per block: two consumer warpgroups of 64
 constexpr int kStages = 2;              // Q/dO tiles in flight
-constexpr int kWsThreads = 384;         // consumer warpgroups 0 and 1, the producer's 2
-constexpr int kProducerRegs = 24;       // setmaxnreg: 24 x 128 + 240 x 256 = 384 x 168
-constexpr int kConsumerRegs = 240;
 
 // query rows per streamed Q/dO tile: 64, and 32 at hd 160, where the dK and
 // dV accumulators (hd f32 registers a thread) leave less room for S^T and dP^T
@@ -851,19 +980,32 @@ cudaError_t launch_dq_f32(const Args& a) {
 
 template <int HD>
 cudaError_t launch_dq_bf16(const Args& a) {
-  auto kern = dq_kernel_bf16<HD>;
-  const size_t smem = dq_smem_bytes<HD>();
-  cudaError_t err = opt_in(kern, smem);
-  if (err != cudaSuccess) return err;
+  // K and V end at ctx + l for TMA (the stale tail past it reads as zeros),
+  // Q and dO at l
+  using S = DqSmem<HD>;
   const long long* st = a.st;
-  const dim3 grid(a.Hq, a.B, (a.l + kMmaBQ - 1) / kMmaBQ);
-  kern<<<grid, kMmaThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<bf16*>(a.o1), a.l, a.Hq, a.Hq / a.Hkv, a.ctx, st[0], st[1], st[2], st[3],
-      st[4], st[5], st[6], st[7], st[8], st[9], rsqrtf(float(HD)),
-      rsqrtf(float(HD)) * kLog2e);
+  const int valid = a.ctx + a.l;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  cudaError_t err = sm90::make_map<HD>(&tm_q, a.q, a.B, a.l, a.Hq, st[0], st[1], kDqBQ);
+  if (err == cudaSuccess)
+    err = sm90::make_map<HD>(&tm_k, a.k, a.B, valid, a.Hkv, st[2], st[3], S::BK);
+  if (err == cudaSuccess)
+    err = sm90::make_map<HD>(&tm_v, a.v, a.B, valid, a.Hkv, st[4], st[5], S::BK);
+  if (err == cudaSuccess)
+    err = sm90::make_map<HD>(&tm_do, a.dout, a.B, a.l, a.Hq, st[6], st[7], kDqBQ);
+  if (err != cudaSuccess) return err;
+  auto kern = dq_kernel_bf16<HD>;
+  err = opt_in(kern, S::kBytes);
+  if (err != cudaSuccess) return err;
+  // one block per SM at most, each walking its share of the q tiles
+  int sms = 0;
+  err = sm90::sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int items = (a.l + kDqBQ - 1) / kDqBQ * a.Hq * a.B;
+  kern<<<min(items, sms), kWsThreads, S::kBytes, a.stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf16*>(a.o1), a.l, a.Hq, a.Hq / a.Hkv,
+      a.ctx, a.B, st[8], st[9], rsqrtf(float(HD)), rsqrtf(float(HD)) * kLog2e);
   return cudaGetLastError();
 }
 

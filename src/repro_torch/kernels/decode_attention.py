@@ -5,10 +5,11 @@ Pallas body ``_decode_kernel`` becomes ``csrc/decode_attention.cu``).
 CUDA tensors only; CPU tensors take :func:`repro_torch.kernels.ref.
 decode_attention_ref` through :mod:`repro_torch.kernels.ops`.
 
-One call launches two kernels: one block per (b, kv head, query-head group,
-chunk of ``CHUNK`` keys) writes its partial softmax state to a workspace,
-and a merge kernel combines the chunks of each (b, query head) in chunk
-order.  ``launches`` counts calls.
+One call is one launch: a thread-block cluster per (b, kv head, query-head
+group) splits the valid keys into one span per CTA
+(:func:`repro_torch.kernels.tile_walk.decode_spans`) and merges the spans'
+softmax states through distributed shared memory, in rank order.
+``launches`` counts calls.
 """
 from __future__ import annotations
 
@@ -21,12 +22,10 @@ from .terapipe_attention import check_attention_inputs
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-CHUNK = 128     # keys per block of the first kernel (kChunk in the source)
-
 
 def _lib():
     fn = _build.load("decode_attention").decode_attention
-    fn.argtypes = [_P] * 6 + [_I] * 7 + [_L] * 6 + [_P]
+    fn.argtypes = [_P] * 5 + [_I] * 6 + [_L] * 6 + [_P]
     fn.restype = _I
     return fn
 
@@ -47,12 +46,9 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention_kernel: kv_len shape {tuple(lens.shape)}")
     lens = lens.to(torch.int32).reshape(-1).expand(b).contiguous()
     out = torch.empty((b, 1, hq, hd), dtype=q.dtype, device=q.device)
-    n_chunks = -(-k.shape[1] // CHUNK)
-    # the chunks' partial states: acc (B, Hq, n_chunks, hd), then (m, s) of each
-    ws = torch.empty(b * hq * n_chunks * (hd + 2), dtype=torch.float32, device=q.device)
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lens.data_ptr(), ws.data_ptr(), b, hq, k.shape[2], k.shape[1], hd,
-                 int(q.dtype == torch.bfloat16), CHUNK, q.stride(0), k.stride(0),
+                 lens.data_ptr(), b, hq, k.shape[2], k.shape[1], hd,
+                 int(q.dtype == torch.bfloat16), q.stride(0), k.stride(0),
                  k.stride(1), v.stride(0), v.stride(1), out.stride(0),
                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attention_kernel")

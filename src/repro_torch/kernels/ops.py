@@ -30,7 +30,7 @@ from typing import Dict
 
 import torch
 
-from .decode_attention import CHUNK, decode_attention_kernel
+from .decode_attention import decode_attention_kernel
 from .ref import decode_attention_ref, terapipe_attention_bwd_ref, terapipe_attention_ref
 from .terapipe_attention import check_attention_shapes, terapipe_attention_fwd
 from .terapipe_attention_bwd import terapipe_attention_bwd
@@ -125,10 +125,9 @@ def _bwd_meta(q, k, v, do, lse, delta, ctx: int):
 
 
 def _decode_meta(q, k, v, kv_len):
-    """The decode kernel's output (B, 1, Hq, hd) like q, and its chunk
-    workspace while the call lasts.  Valid keys: ``kv_len`` when it is a
-    host number (or a tensor that is not on meta), else the whole cache (a
-    meta tensor holds no lengths)."""
+    """The decode kernel's output (B, 1, Hq, hd) like q.  Valid keys:
+    ``kv_len`` when it is a host number (or a tensor that is not on meta),
+    else the whole cache (a meta tensor holds no lengths)."""
     check_attention_shapes(q, k, v, "decode_attention (meta)")
     b, _, hq, hd = q.shape
     hkv, lmax = k.shape[2], k.shape[1]
@@ -138,12 +137,9 @@ def _decode_meta(q, k, v, kv_len):
         keys = b * lmax
     else:
         keys = int(kv_len.reshape(-1).expand(b).clamp(0, lmax).sum())
-    n_chunks = -(-lmax // CHUNK)
-    ws = _empty((b * hq * n_chunks * (hd + 2),), q, torch.float32)
     out = _empty((b, 1, hq, hd), q)
     _count("decode_attention", 4 * hd * hq * keys,
            _nbytes(q, out) + 2 * keys * hkv * hd * q.element_size() + 4 * b)
-    del ws
     return out
 
 

@@ -10,10 +10,12 @@ dS.K (dQ), dS^T split into two bf16 parts (hi + its rounding error, two
 products) before dS^T.Q (dK), f32 accumulation.  The forward (wgmma) keeps
 its running max in raw score units per 128-key tile and takes P =
 2^(scale*log2e*(S - m)) against it; the dK/dV kernel (wgmma) takes P^T =
-2^(scale*log2e*S^T - lse*log2e), whole rows at once.  The f32 SIMT kernels they
-replace kept P and dS in f32.  The decode kernel (``csrc/decode_attention.cu``)
-splits the cache into chunks of ``CHUNK`` keys, keeps a softmax state per
-chunk and merges the states in chunk order.  Plain emulations of that
+2^(scale*log2e*S^T - lse*log2e), whole rows at once, as the dQ kernel (wgmma)
+takes P.  The f32 SIMT kernels they replace kept P and dS in f32.  The decode
+kernel (``csrc/decode_attention.cu::decode_kernel``) splits the valid keys
+over a cluster of ``DECODE_CLUSTER`` CTAs (``tile_walk.decode_spans``); each
+CTA's warps keep online softmax states over boxes of ``DECODE_BOX`` keys,
+merged in warp order, then the CTAs' states in rank order.  Plain emulations of that
 arithmetic, local to this file, are held against the Pallas kernels in
 interpret mode on the cases and at the tolerances of
 ``tests/test_torch_kernels.py`` (forward bf16 2e-2; decode f32 2e-5, bf16
@@ -32,7 +34,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels.decode_attention import decode_attention_kernel as jax_decode
 from repro.kernels.terapipe_attention import terapipe_attention_fwd as jax_fwd
-from repro_torch.kernels.decode_attention import CHUNK
+from repro_torch.kernels import tile_walk
 from repro_torch.kernels.ref import terapipe_attention_ref
 
 from test_torch_kernels import DECODE, DTYPES, PREFILL
@@ -43,6 +45,7 @@ from test_torch_kernels_bwd import CASES
 torch.set_num_threads(1)
 
 KEY_TILE = 128    # keys per K/V tile of fwd_kernel_bf16 (tile_walk.FWD_BK)
+C, BOX = tile_walk.DECODE_CLUSTER, tile_walk.DECODE_BOX
 LOG2E = 1 / math.log(2)
 
 
@@ -128,33 +131,54 @@ def tc_dq(q, k, v, do, lse, delta, ctx: int):
     return (torch.einsum("bhqk,bkhd->bqhd", _bf16(ds), kf) * scale).to(torch.bfloat16)
 
 
-def split_decode(q, k, v, kv_len, chunk: int = CHUNK):
-    """decode_chunk_kernel + decode_merge_kernel: q pre-scaled by
-    scale*log2e in f32; per chunk of ``chunk`` keys below kv_len (clamped to
-    [0, L]) the scores in log2 units, m_c = their max, p = 2^(x - m_c), s_c =
-    sum p, acc_c = p.V in f32; then, in chunk order, M = max m_c and O = sum
-    acc_c 2^(m_c - M) / max(sum s_c 2^(m_c - M), 1e-30) (0 at kv_len 0)."""
+def _merge(states):
+    """(m, s, acc) states in log2 units merged in the given order: M = max
+    m, weights 2^(m - M) (0 for a state that saw nothing, m = -inf)."""
+    mx = states[0][0]
+    for m, _, _ in states[1:]:
+        mx = torch.maximum(mx, m)
+    num, den = torch.zeros_like(states[0][2]), torch.zeros_like(states[0][1])
+    for m, s, acc in states:
+        w = torch.where(m == -math.inf, 0.0, torch.exp2(m - mx))
+        num, den = num + acc * w[:, None], den + s * w
+    return mx, den, num
+
+
+def split_decode(q, k, v, kv_len):
+    """decode_kernel's arithmetic: q pre-scaled by scale*log2e in f32; each
+    rank's span of tile_walk.decode_spans(kv_len) (clamped to [0, L]) in
+    boxes of BOX keys, warp w of the rank's tile_walk.decode_warps taking
+    boxes w, w + W, ... with an online softmax in log2 units (m the running max, p = 2^(x - m), the
+    earlier sums rescaled by 2^(m_old - m)); the warps' states merged in
+    order, then the ranks' in rank order: O = sum acc 2^(m - M) /
+    max(sum s 2^(m - M), 1e-30), 0 at kv_len 0."""
     b, _, hq, hd = q.shape
     L, rep = k.shape[1], hq // k.shape[2]
     lens = torch.as_tensor(kv_len).reshape(-1).expand(b).clamp(0, L)
     qs = q.float()[:, 0] * (LOG2E / math.sqrt(hd))                # (B, Hq, hd)
     kf, vf = _expand(k, rep), _expand(v, rep)
+    n_warps = tile_walk.decode_warps(hd, q.element_size())
+    empty = (torch.full((hq,), -math.inf), torch.zeros(hq), torch.zeros((hq, hd)))
     out = torch.zeros((b, 1, hq, hd))
     for bi in range(b):
-        states = []
-        for c0 in range(0, int(lens[bi]), chunk):
-            keys = slice(c0, min(c0 + chunk, int(lens[bi])))
-            x = torch.einsum("hd,khd->hk", qs[bi], kf[bi, keys])
-            m = x.amax(-1)
-            p = torch.exp2(x - m[:, None])
-            states.append((m, p.sum(-1), torch.einsum("hk,khd->hd", p, vf[bi, keys])))
-        mx = torch.full((hq,), -math.inf)
-        for m, _, _ in states:
-            mx = torch.maximum(mx, m)
-        num, den = torch.zeros((hq, hd)), torch.zeros(hq)
-        for m, s, acc in states:
-            w = torch.exp2(m - mx)
-            num, den = num + acc * w[:, None], den + s * w
+        ranks = []
+        for k0, k1 in tile_walk.decode_spans(int(lens[bi])):
+            boxes = list(range(k0, k1, BOX))
+            warps = []
+            for w in range(n_warps):
+                m, s, acc = empty
+                for c0 in boxes[w::n_warps]:
+                    keys = slice(c0, min(c0 + BOX, k1))
+                    x = torch.einsum("hd,khd->hk", qs[bi], kf[bi, keys])
+                    m_new = torch.maximum(m, x.amax(-1))
+                    alpha = torch.where(m == -math.inf, 0.0, torch.exp2(m - m_new))
+                    p = torch.exp2(x - m_new[:, None])
+                    s = s * alpha + p.sum(-1)
+                    acc = acc * alpha[:, None] + torch.einsum("hk,khd->hd", p, vf[bi, keys])
+                    m = m_new
+                warps.append((m, s, acc))
+            ranks.append(_merge(warps))
+        _, den, num = _merge(ranks)
         out[bi, 0] = num / den.clamp_min(1e-30)[:, None]
     return out.to(q.dtype)
 
@@ -238,12 +262,14 @@ def test_tc_dq_matches_pallas(b, l, ctx, hq, hkv, hd, scale):
 
 @pytest.mark.parametrize("ndt,jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,L,hq,hkv,hd,kv_len", DECODE + [
-    (6, 2 * CHUNK + 44, 4, 2, 16, [0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 44])])
+    (7, BOX * C + 43, 4, 2, 16, [0, 1, C - 1, C, BOX * C - 1, BOX * C + 1, BOX * C + 43]),
+    (3, BOX * C + 43, 24, 2, 32, [BOX * C + 1, 0, C - 1])])
 def test_split_decode_matches_pallas(b, L, hq, hkv, hd, kv_len, ndt, jdt, tdt, tol):
-    """The chunked softmax and its merge in chunk order: within the decode
-    tolerances of the Pallas decode kernel, on the DECODE cases and on
-    lengths at the chunk edges (0, 1, CHUNK-1, CHUNK, CHUNK+1, L); exactly
-    0 where kv_len is 0."""
+    """The cluster's split, its warps' online softmax and the merges in
+    warp and rank order: within the decode tolerances of the Pallas decode
+    kernel, on the DECODE cases and on lengths at the split's edges (0, 1,
+    C-1, C, BOX*C-1, BOX*C+1, L), also with GQA 12 (two query-head groups
+    of 8 and 4 in the kernel); exactly 0 where kv_len is 0."""
     rng = np.random.RandomState(L + hd)
     arrs = [rng.randn(*shape).astype(ndt)
             for shape in ((b, 1, hq, hd), (b, L, hkv, hd), (b, L, hkv, hd))]

@@ -1,11 +1,13 @@
-"""The tile walk of the bf16 forward and dK/dV kernels
+"""The tile walks of the bf16 forward, dQ and dK/dV kernels
 (``repro_torch.kernels.tile_walk``, the plain statement of what
 ``csrc/terapipe_attention_fwd.cu::fwd_kernel_bf16`` and
-``csrc/terapipe_attention_bwd.cu::dkv_kernel_bf16`` load, compute and mask)
-against the brute-force mask of ``repro_torch.kernels.ref.attention_mask``:
-every pair the mask allows is computed exactly once (per query head, for
-dK/dV), no unmasked tile holds a pair the mask refuses, and nothing is
-loaded past a frontier or loaded and not computed.  Hypothesis draws l,
+``csrc/terapipe_attention_bwd.cu::dq_kernel_bf16`` and ``::dkv_kernel_bf16``
+load, compute and mask) against the brute-force mask of
+``repro_torch.kernels.ref.attention_mask``: every pair the mask allows is
+computed exactly once (per query head, for dK/dV), no unmasked tile holds a
+pair the mask refuses, and nothing is loaded past a frontier or loaded and
+not computed.  The decode kernel's split (``tile_walk.decode_spans``) covers
+the valid keys once, in rank order.  Hypothesis draws l,
 ctx, the stale tail, the GQA ratio and the tile sizes; the kernels' own
 sizes are checked on the main paths' shapes.  The frontier arithmetic
 divides as C does (truncating toward zero), so a division of a negative
@@ -122,6 +124,50 @@ def test_walks_at_the_kernels_tiles(l, ctx, tail, rep, hd):
     check_dkv(l, ctx, tail, rep, tw.dkv_bq(hd), tw.DKV_BK, tw.GROUP)
 
 
+@pytest.mark.parametrize("l,ctx,tail,rep,hd", KERNEL_CASES)
+def test_dq_walk_at_its_tiles(l, ctx, tail, rep, hd):
+    """dQ's walk (the forward's, at DQ_BQ rows and dq_bk(hd) keys: 32 at hd
+    160) on the main paths' shapes."""
+    assert tw.dq_walk(l, ctx, hd) == tw.fwd_walk(l, ctx, tw.DQ_BQ, tw.dq_bk(hd), tw.GROUP)
+    check_fwd(l, ctx, tail, tw.DQ_BQ, tw.dq_bk(hd), tw.GROUP)
+
+
+C, BOX = tw.DECODE_CLUSTER, tw.DECODE_BOX
+
+
+@pytest.mark.parametrize("kv_len", [0, 1, C - 1, C, BOX * C - 1, BOX * C + 1, 2048])
+def test_decode_spans_cover_the_keys_once(kv_len):
+    """The decode cluster's ranks read [0, kv_len) exactly once, in key
+    order, each span a whole number of boxes but the last non-empty one,
+    the empty spans at the end (L = 2048, the serving cache)."""
+    spans = tw.decode_spans(kv_len)
+    assert len(spans) == C
+    covered = [k for (a, b) in spans for k in range(a, b)]
+    assert covered == list(range(kv_len))
+    starts = [a for a, _ in spans]
+    assert starts == sorted(starts)
+    width = -(-(-(-kv_len // C)) // BOX) * BOX
+    for a, b in spans:
+        assert b - a in (0, width) or b == kv_len
+        assert a % BOX == 0 or a == b == kv_len
+    empty = [b == a for a, b in spans]
+    assert empty == sorted(empty)                # the empty spans come last
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_decode_warps_fill_the_stage_budget(itemsize):
+    """The decode CTA's warps (one ring stage each) at every head dim: as
+    many stages as the budget holds, 2 to 8; 4 at hd 128 in bf16, the
+    serving path's."""
+    for hd in (16, 32, 64, 96, 128, 160):
+        w = tw.decode_warps(hd, itemsize)
+        stage = 2 * BOX * hd * itemsize
+        assert 2 <= w <= 8
+        assert w * stage <= tw.DECODE_STAGE_BYTES or w == 2
+        assert w == 8 or (w + 1) * stage > tw.DECODE_STAGE_BYTES
+    assert tw.decode_warps(128, 2) == 4
+
+
 def test_c_division_truncates_toward_zero():
     """The walk divides as the kernels' C does, not as Python floors."""
     assert [tw._div(a, 4) for a in (-5, -4, -1, 0, 3, 4, 5)] == [-1, -1, 0, 0, 0, 1, 1]
@@ -131,7 +177,9 @@ def test_c_division_truncates_toward_zero():
 def test_summary_at_the_training_shape():
     """gpt3-1b's layer (B 4, l 2048, Hq = Hkv = 16, hd 128): 1024 forward
     units, q tile i loading key tiles 0..i, both warpgroups computing all of
-    them and masking the diagonal one; 1024 dK/dV units, key tile j
+    them and masking the diagonal one; 1024 dQ units, q tile i loading the
+    2i + 2 key tiles of 64, its first warpgroup computing 2i + 1 of them
+    and each masking its diagonal tile; 1024 dK/dV units, key tile j
     streaming the 32 - 2j q tiles of 64 rows from 2j, each warpgroup masking
     the one that holds its keys' diagonal, and the second skipping the first
     (its rows precede the group's keys)."""
@@ -140,6 +188,10 @@ def test_summary_at_the_training_shape():
     assert s["fwd_tiles_loaded"] == 64 * sum(range(1, 17))
     assert s["fwd_tiles_computed"] == 2 * s["fwd_tiles_loaded"]
     assert s["fwd_tiles_masked"] == 2 * 64 * 16
+    assert s["dq_units"] == 4 * 16 * 16
+    assert s["dq_tiles_loaded"] == 64 * sum(2 * i + 2 for i in range(16))
+    assert s["dq_tiles_computed"] == 64 * sum(4 * i + 3 for i in range(16))
+    assert s["dq_tiles_masked"] == 2 * 64 * 16
     assert s["dkv_items_loaded"] == 64 * sum(32 - 2 * j for j in range(16))
     assert s["dkv_items_computed"] == 2 * s["dkv_items_loaded"] - 64 * 16
     assert s["dkv_items_masked"] == 2 * 64 * 16
