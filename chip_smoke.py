@@ -247,12 +247,12 @@ result line):
                row's slice_shapes) and every kernel at phase 8b's shapes
                (family_shapes); the tile walk of the forward and dK/dV
                kernels at the training shape (kernels/tile_walk.py);
- 10. profiles — one gspmd step and two pipelined steps (M 8, contiguous and
-               1f1b) of gpt3-1b, and one gspmd step each of deepseek-moe-16b
-               (3 layers), mamba2-2.7b (40 layers) and whisper-medium (with
+ 10. profiles — one pipelined 1f1b step (M 8) of gpt3-1b and one gspmd
+               step each of mamba2-2.7b (40 layers) and whisper-medium (with
                the share of its device time in the encoder's and the
-               cross-attention's plain attention cores), under
-               torch.profiler: the 15 device kernels that took the most
+               cross-attention's plain attention cores), the paths no cell
+               of perfbench/ traces, under torch.profiler: the 15 device
+               kernels that took the most
                time and the repo's own kernels wherever they rank, with
                their share of the step, the device's busy share, and the
                host operators that took the most time.  Last, because a
@@ -326,7 +326,7 @@ from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.optim.adamw import (AdamWState, adamw, apply_updates,  # noqa: E402
                                      cosine_schedule, global_norm, world_sq_norm)
 from repro_torch.serve import DecodeEngine, EngineConfig  # noqa: E402
-from repro_torch.timing import PEAK_BF16_FLOPS, bound_ms, time_ms  # noqa: E402
+from repro_torch.timing import bound_ms, time_ms  # noqa: E402
 from repro_torch.tree import (jax_items, jax_leaves, tree_items, tree_leaves,  # noqa: E402
                               tree_map)
 
@@ -1158,11 +1158,7 @@ def phase_train():
     n_params = _check_train_against_plain(cfg, gspmd=True)
     torch.cuda.empty_cache()
     counts, metrics = _train_run(cfg, TRAIN_ARGV, "train", _launches_per_step(cfg, 1))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    metrics.update(n_params=n_params,
-                   mfu=6 * n_params * tokens / (metrics["step_ms"] / 1e3) / PEAK_BF16_FLOPS)
-    log(f"[train] {n_params:,} parameters; mfu {metrics['mfu']:.4f} (6*N*tokens per step / "
-        f"989 TFLOP/s)")
+    log(f"[train] {n_params:,} parameters")
     torch.cuda.empty_cache()
     return counts, metrics
 
@@ -2411,12 +2407,8 @@ def phase_families() -> dict:
         {"terapipe_attention_fwd": dec.n_layers,
          "decode_attention": dec.n_layers * WHISPER_DECODE_STEPS})
     torch.cuda.empty_cache()
-    # mfu: 6 N per position of the batch (vlm: patches + text; whisper: the
-    # encoder's and the decoder's positions are as many) over 989 TFLOP/s
-    mfu = lambda s, m: (6 * n_params[s.split()[0]] * TRAIN_BATCH * TRAIN_SEQ
-                        / (m["step_ms"] / 1e3) / PEAK_BF16_FLOPS)
     log(f"[families] {_card()}; batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, --use-kernel: " + "; ".join(
-        f"{s} {m['step_ms']:.1f} ms/step, {m['tok_s']:.0f} positions/s, mfu {mfu(s, m):.4f}, "
+        f"{s} {m['step_ms']:.1f} ms/step, {m['tok_s']:.0f} positions/s, "
         f"peak {m['peak_gib'] - m['base_gib']:.2f} GiB above the {m['base_gib']:.2f} GiB "
         f"baseline" for s, m in runs.items()))
     return counts
@@ -3732,25 +3724,18 @@ def _plain_attention_share(cfg, profiled: dict) -> None:
 
 
 def phase_profiles() -> None:
-    """One gspmd step and two pipelined steps (M = PIPE_SLICES, contiguous
-    and 1f1b) of gpt3-1b, one gspmd step each of deepseek-moe-16b (phase
-    7's depth), mamba2-2.7b (phase 8's) and whisper-medium (with its plain
-    attention's share of the device time) under torch.profiler, last: after a profiled region the host's eager launches
-    run slower for the rest of the process, which a host-bound run (the
-    pipelined step, the stage sweep) shows in its times, so every timed
-    eager run comes before it."""
+    """One pipelined 1f1b step (M = PIPE_SLICES) of gpt3-1b and one gspmd
+    step each of mamba2-2.7b (phase 8's depth) and whisper-medium (with its
+    plain attention's share of the device time) under torch.profiler: the
+    paths no cell of the benchmark (``perfbench/``) traces.  Last: after a
+    profiled region the host's eager launches run slower for the rest of
+    the process, which a host-bound run (the pipelined step, the stage
+    sweep) shows in its times, so every timed eager run comes before it."""
     cfg = _gpt3_1b().replace(use_kernel=True)
     torch.cuda.empty_cache()
-    _profile_step(cfg, lambda model: value_and_grad(model.loss), "gspmd")
-    torch.cuda.empty_cache()
-    for schedule in ("contiguous", "1f1b"):
-        tcfg = TeraPipeConfig(n_token_slices=PIPE_SLICES, schedule=schedule)
-        _profile_step(cfg, lambda model: make_terapipe_value_and_grad(
-            model, tcfg, TRAIN_SEQ, TRAIN_BATCH, PIPE_RANKS),
-            f"terapipe {schedule} M {PIPE_SLICES}")
-        torch.cuda.empty_cache()
-    _profile_step(_deepseek().replace(use_kernel=True),
-                  lambda model: value_and_grad(model.loss), "gspmd")
+    tcfg = TeraPipeConfig(n_token_slices=PIPE_SLICES, schedule="1f1b")
+    _profile_step(cfg, lambda model: make_terapipe_value_and_grad(
+        model, tcfg, TRAIN_SEQ, TRAIN_BATCH, PIPE_RANKS), f"terapipe 1f1b M {PIPE_SLICES}")
     torch.cuda.empty_cache()
     _profile_step(_mamba2(), lambda model: value_and_grad(model.loss), "gspmd")
     torch.cuda.empty_cache()

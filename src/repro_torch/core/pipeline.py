@@ -130,6 +130,7 @@ from repro_torch.models import Model, build_model
 from repro_torch.models.attention import tp_local_kv_heads, tp_rank_attn
 from repro_torch.models.common import LocalGroup, ModelConfig, rms_norm, shards
 from repro_torch.models.lm import BlockGroup, _remat, _scan_full, _unstack, _xent_chunk
+from repro_torch.tracing import span
 from repro_torch.tree import tree_items, tree_leaves, tree_map, tree_unflatten
 
 from .schedules import (KIND_BWD, KIND_BWD_INPUT, KIND_BWD_WEIGHT, KIND_FWD, get_schedule,
@@ -548,6 +549,11 @@ class _Plan:
         return x, new
 
 
+#: a backward unit's span by its kind (``repro_torch/tracing.py``)
+_BWD_SPANS = {KIND_BWD: "pipe.bwd", KIND_BWD_INPUT: "pipe.bwd_input",
+              KIND_BWD_WEIGHT: "pipe.bwd_weight"}
+
+
 def _run_ticks(p: _Plan, run_fwd: Callable, run_bwd: Optional[Callable] = None) -> None:
     """The tick interpreter over the ranks the ring hosts (all K in
     process, one under a process group).  Per tick, every value the rings
@@ -584,18 +590,22 @@ def _run_ticks(p: _Plan, run_fwd: Callable, run_bwd: Optional[Callable] = None) 
                     hold = comm.fwd_hold if k == 0 else 0
                     x_in = xbuf[j][(t - hold) % hx]
                     assert x_in is not None, (t, k, v, i)
-                x_sent[j] = run_fwd(k, v, i, x_in)
+                with span("pipe.fwd"):
+                    x_sent[j] = run_fwd(k, v, i, x_in)
                 continue
             g = None
             if (k, v) != p.last and kind != KIND_BWD_WEIGHT:
                 lag = comm.rev_lag or (comm.rev_hold if k == K - 1 else 0)
                 g = gbuf[j][(t - lag) % hg]
                 assert g is not None, (t, k, v, i, kind)
-            g_sent[j] = run_bwd(k, v, i, kind, g)
+            with span(_BWD_SPANS[kind]):
+                g_sent[j] = run_bwd(k, v, i, kind, g)
         p.running = None
-        x_recv = p.ring.shift(x_sent)
+        with span("pipe.shift"):
+            x_recv = p.ring.shift(x_sent)
         if comm.rev_ring:
-            g_recv = p.ring.shift(g_sent, step=-1)
+            with span("pipe.shift"):
+                g_recv = p.ring.shift(g_sent, step=-1)
 
 
 def _run_forward(p: _Plan, params, x_emb: torch.Tensor):
@@ -637,11 +647,12 @@ def _make_loss_from_plan(p: _Plan) -> Callable:
 
     def loss_fn(params, batch) -> torch.Tensor:
         outs, _ = _run_forward(p, params, p.prefix(params, batch))
-        x_final = torch.cat([torch.cat(outs[d * p.M:(d + 1) * p.M], dim=1)
-                             for d in range(p.D)], dim=0)
-        for g in p.post:
-            x_final = _scan_full(g, params["groups"][g.name], x_final, p.cfg.remat)
-        loss = p.model.head_loss(params, x_final, batch["labels"])
+        with span("pipe.head"):
+            x_final = torch.cat([torch.cat(outs[d * p.M:(d + 1) * p.M], dim=1)
+                                 for d in range(p.D)], dim=0)
+            for g in p.post:
+                x_final = _scan_full(g, params["groups"][g.name], x_final, p.cfg.remat)
+            loss = p.model.head_loss(params, x_final, batch["labels"])
         return loss * (p.b_local / p.B) if p.data > 1 else loss
 
     return loss_fn
@@ -695,21 +706,23 @@ class _UnitGrads:
         self.final_ln = params["final_ln"].detach().requires_grad_()
         self.w_head = (params["embed"] if tied else params["lm_head"]).detach().requires_grad_()
         self.post = {g.name: tree_map(_requiring_grad, params["groups"][g.name]) for g in p.post}
-        # the prologue's parameters as leaves of their own: the embedding
-        # and every pre-group
-        self.pro = tree_map(_requiring_grad, {
-            "embed": params["embed"], "groups": {g.name: params["groups"][g.name] for g in p.pre}})
-        with torch.enable_grad():
-            self.x_emb = p.prefix({**params, **self.pro}, batch)
-        self.x_det = self.x_emb.detach()
+        with span("pipe.prologue"):
+            # the prologue's parameters as leaves of their own: the embedding
+            # and every pre-group
+            self.pro = tree_map(_requiring_grad, {
+                "embed": params["embed"],
+                "groups": {g.name: params["groups"][g.name] for g in p.pre}})
+            with torch.enable_grad():
+                self.x_emb = p.prefix({**params, **self.pro}, batch)
+            self.x_det = self.x_emb.detach()
 
-        f32 = lambda a: torch.zeros(a.shape, dtype=torch.float32, device=a.device)
-        hosted = [kv for kv in self.layers if kv[0] in p.ring.ranks]
-        self.d_layers = {kv: tree_map(f32, self.layers[kv]) for kv in hosted}
-        self.d_head = [f32(self.final_ln), f32(self.w_head)]
-        self.d_post = tree_map(f32, self.post)
-        self.d_emb = torch.zeros_like(self.x_det)
-        self.loss = torch.zeros((), dtype=torch.float32, device=self.x_det.device)
+            f32 = lambda a: torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+            hosted = [kv for kv in self.layers if kv[0] in p.ring.ranks]
+            self.d_layers = {kv: tree_map(f32, self.layers[kv]) for kv in hosted}
+            self.d_head = [f32(self.final_ln), f32(self.w_head)]
+            self.d_post = tree_map(f32, self.post)
+            self.d_emb = torch.zeros_like(self.x_det)
+            self.loss = torch.zeros((), dtype=torch.float32, device=self.x_det.device)
 
     def head_params(self) -> dict:
         """The head's leaves under the keys ``Model.head_loss`` reads."""
@@ -730,26 +743,27 @@ class _UnitGrads:
             acc += g.float()
 
     def finish(self):
-        p = self.p
-        d_main = self.main_grads()
-        if p.sharded:                                # the other ranks' shares
-            reduce = lambda a: p.ring.all_reduce([a])[0]
-            self.loss, self.d_emb = reduce(self.loss), reduce(self.d_emb)
-            self.d_head = [reduce(a) for a in self.d_head]
-            for acc in tree_leaves(self.d_post):
-                acc.copy_(reduce(acc))
+        with span("pipe.finish"):
+            p = self.p
+            d_main = self.main_grads()
+            if p.sharded:                                # the other ranks' shares
+                reduce = lambda a: p.ring.all_reduce([a])[0]
+                self.loss, self.d_emb = reduce(self.loss), reduce(self.d_emb)
+                self.d_head = [reduce(a) for a in self.d_head]
+                for acc in tree_leaves(self.d_post):
+                    acc.copy_(reduce(acc))
 
-        d_pro = tree_unflatten(self.pro, torch.autograd.grad(
-            self.x_emb, list(tree_leaves(self.pro)), self.d_emb))
-        named = {"embed": d_pro["embed"].float(), "final_ln": self.d_head[0]}
-        if self.tied:
-            named["embed"] = named["embed"] + self.d_head[1]
-        else:
-            named["lm_head"] = self.d_head[1]
-        named["groups"] = {**d_pro["groups"], **self.d_post, p.main.name: d_main}
-        grads = {key: tree_map(lambda a, g: g.to(a.dtype), self.params[key], named[key])
-                 for key in self.params}
-        return self.loss, grads
+            d_pro = tree_unflatten(self.pro, torch.autograd.grad(
+                self.x_emb, list(tree_leaves(self.pro)), self.d_emb))
+            named = {"embed": d_pro["embed"].float(), "final_ln": self.d_head[0]}
+            if self.tied:
+                named["embed"] = named["embed"] + self.d_head[1]
+            else:
+                named["lm_head"] = self.d_head[1]
+            named["groups"] = {**d_pro["groups"], **self.d_post, p.main.name: d_main}
+            grads = {key: tree_map(lambda a, g: g.to(a.dtype), self.params[key], named[key])
+                     for key in self.params}
+            return self.loss, grads
 
     def main_grads(self):
         """The hosted chunks' sums as gradients of the stacked main-group
@@ -923,9 +937,11 @@ def _run_ticks_transposed(p: _Plan, run_bwd: Callable) -> None:
                 g = gbuf[j][(r - (hold if k == K - 1 else 0)) % h]
                 assert g is not None, (t, k, v, i)
             p.running = k
-            g_sent[j] = run_bwd(k, v, i, g)
+            with span("pipe.bwd"):
+                g_sent[j] = run_bwd(k, v, i, g)
         p.running = None
-        g_recv = p.ring.shift(g_sent, step=-1)
+        with span("pipe.shift"):
+            g_recv = p.ring.shift(g_sent, step=-1)
 
 
 def _make_transposed_value_and_grad(p: _Plan) -> Callable:
@@ -998,25 +1014,26 @@ def _make_transposed_value_and_grad(p: _Plan) -> Callable:
 
         _run_ticks(p, run_fwd)
         if last_hosted:
-            # the loss on the last stage's outputs: reassembled, then the
-            # post-groups, the head and the loss, as _make_loss_from_plan
-            outs = [store.get(*p.last, i)[2].detach().requires_grad_() for i in range(p.DM)]
-            with torch.enable_grad():
-                x_final = torch.cat([torch.cat(outs[d * p.M:(d + 1) * p.M], dim=1)
-                                     for d in range(p.D)], dim=0)
-                for g in p.post:
-                    x_final = _scan_full(g, u.post[g.name], x_final, p.cfg.remat)
-                loss = p.model.head_loss(u.head_params(), x_final, batch["labels"])
-                if p.data > 1:
-                    loss = loss * (p.b_local / p.B)
-            post = list(tree_leaves(u.post))
-            grads = torch.autograd.grad(loss, outs + post + [u.final_ln, u.w_head])
-            seeds.update(enumerate(grads[:p.DM]))
-            for acc, g in zip(tree_leaves(u.d_post), grads[p.DM:p.DM + len(post)]):
-                acc += g.float()
-            u.head_cots(grads[p.DM + len(post):])
-            u.loss = loss.detach().float()
-            del outs, x_final, loss, grads
+            with span("pipe.head"):
+                # the loss on the last stage's outputs: reassembled, then the
+                # post-groups, the head and the loss, as _make_loss_from_plan
+                outs = [store.get(*p.last, i)[2].detach().requires_grad_() for i in range(p.DM)]
+                with torch.enable_grad():
+                    x_final = torch.cat([torch.cat(outs[d * p.M:(d + 1) * p.M], dim=1)
+                                         for d in range(p.D)], dim=0)
+                    for g in p.post:
+                        x_final = _scan_full(g, u.post[g.name], x_final, p.cfg.remat)
+                    loss = p.model.head_loss(u.head_params(), x_final, batch["labels"])
+                    if p.data > 1:
+                        loss = loss * (p.b_local / p.B)
+                post = list(tree_leaves(u.post))
+                grads = torch.autograd.grad(loss, outs + post + [u.final_ln, u.w_head])
+                seeds.update(enumerate(grads[:p.DM]))
+                for acc, g in zip(tree_leaves(u.d_post), grads[p.DM:p.DM + len(post)]):
+                    acc += g.float()
+                u.head_cots(grads[p.DM + len(post):])
+                u.loss = loss.detach().float()
+                del outs, x_final, loss, grads
         _run_ticks_transposed(p, run_bwd)
         assert not store.slots, "units left without their backward"
         return u.finish()
@@ -1074,8 +1091,10 @@ def value_and_grad(loss_fn: Callable) -> Callable:
     require grad.  The loss comes back detached."""
 
     def vg(params, batch):
-        loss = loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, list(tree_leaves(params)))
+        with span("grad.forward"):
+            loss = loss_fn(params, batch)
+        with span("grad.backward"):
+            grads = torch.autograd.grad(loss, list(tree_leaves(params)))
         return loss.detach(), tree_unflatten(params, grads)
 
     return vg

@@ -49,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import Mesh
+from repro_torch.tracing import span
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
 _HEADER = 6            # has-value flag, dtype index, up to four dims (-1 past the last)
@@ -150,22 +151,27 @@ class DistRing(DistGroup):
         x = sent[0]
         dst = self.members[(self.rank + step) % self.size]
         src = self.members[(self.rank - step) % self.size]
-        header = torch.zeros(_HEADER, dtype=torch.int64, device=self.device)
-        if x is not None:
-            assert x.dim() <= _HEADER - 2, x.shape
-            header[0], header[1] = 1, _DTYPES.index(x.dtype)
-            header[2:2 + x.dim()] = torch.tensor(x.shape)
-            header[2 + x.dim():] = -1
-        got = torch.empty_like(header)
-        self._batch([(dist.isend, header, dst), (dist.irecv, got, src)])
+        # the header's exchange waits for the peer (its read syncs the
+        # host); the payload's moves the value
+        with span("ring.header"):
+            header = torch.zeros(_HEADER, dtype=torch.int64, device=self.device)
+            if x is not None:
+                assert x.dim() <= _HEADER - 2, x.shape
+                header[0], header[1] = 1, _DTYPES.index(x.dtype)
+                header[2:2 + x.dim()] = torch.tensor(x.shape)
+                header[2 + x.dim():] = -1
+            got = torch.empty_like(header)
+            self._batch([(dist.isend, header, dst), (dist.irecv, got, src)])
+            has_value = int(got[0])
         ops, recv = [], None
         if x is not None:
             ops.append((dist.isend, x.detach().contiguous(), dst))
-        if int(got[0]):
+        if has_value:
             shape = [int(d) for d in got[2:] if d >= 0]
             recv = torch.empty(shape, dtype=_DTYPES[int(got[1])], device=self.device)
             ops.append((dist.irecv, recv, src))
-        self._batch(ops)
+        with span("ring.payload"):
+            self._batch(ops)
         return [recv]
 
     def __repr__(self) -> str:

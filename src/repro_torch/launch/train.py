@@ -113,6 +113,7 @@ from repro_torch.models import build_model
 from repro_torch.distributed.sharding import REPLICATED
 from repro_torch.optim.adamw import (AdamWState, adamw, apply_updates, cosine_schedule,
                                      world_sq_norm)
+from repro_torch.tracing import span
 from repro_torch.tree import jax_leaves, tree_leaves, tree_map
 
 #: pipeline ranks: the reference's ``pipe = min(4, n_devices)`` on any host
@@ -299,13 +300,15 @@ def train_step(vg_fn, opt, state: dict, batch) -> torch.Tensor:
     """One step: loss and gradients of ``state["params"]`` on ``batch`` by
     ``vg_fn``, then the AdamW update of ``state["params"]`` and
     ``state["opt_state"]``, rebound in the dict; returns the loss, detached."""
-    loss, grads = vg_fn(state["params"], batch)
-    # rebinding as soon as each value is replaced keeps one copy of the
-    # moments and of the gradients alive at a time
-    updates, state["opt_state"] = opt.update(grads, state["opt_state"], state["params"])
-    del grads
-    state["params"] = tree_map(lambda p: p.requires_grad_(True),
-                               apply_updates(state["params"], updates))
+    with span("step.value_and_grad"):
+        loss, grads = vg_fn(state["params"], batch)
+    with span("step.optimizer"):
+        # rebinding as soon as each value is replaced keeps one copy of the
+        # moments and of the gradients alive at a time
+        updates, state["opt_state"] = opt.update(grads, state["opt_state"], state["params"])
+        del grads
+        state["params"] = tree_map(lambda p: p.requires_grad_(True),
+                                   apply_updates(state["params"], updates))
     return loss
 
 

@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..tracing import span
 from .common import ModelConfig, dense_init, shards, swiglu, tp_group
 from .layers import ffn as dense_ffn, ffn_specs, init_ffn
 
@@ -115,26 +116,27 @@ class _Routing(NamedTuple):
 def _route(router: torch.Tensor, cfg: ModelConfig, xg: torch.Tensor) -> _Routing:
     """Top-k routing of G token groups over all ``cfg.n_experts``, with the
     capacity counted over them: the same on every expert-parallel rank."""
-    g, s, d = xg.shape
-    e, k = cfg.n_experts, cfg.moe_top_k
-    capacity = max(1, math.ceil(cfg.capacity_factor * s * k / e))
+    with span("moe.route"):
+        g, s, d = xg.shape
+        e, k = cfg.n_experts, cfg.moe_top_k
+        capacity = max(1, math.ceil(cfg.capacity_factor * s * k / e))
 
-    logits = (xg @ router.to(xg.dtype)).float()                           # (G, S, E)
-    gates = torch.softmax(logits, dim=-1)
-    topw, topi = torch.topk(gates, k, dim=-1)                             # (G, S, k)
-    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+        logits = (xg @ router.to(xg.dtype)).float()                       # (G, S, E)
+        gates = torch.softmax(logits, dim=-1)
+        topw, topi = torch.topk(gates, k, dim=-1)                         # (G, S, k)
+        topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
 
-    # slot position of each (token, choice) in its expert's queue, within its
-    # group: the exclusive count of earlier choices of that expert in the
-    # flat token-major (S * k) order
-    with torch.no_grad():
-        flat_e = topi.reshape(g, s * k)
-        onehot = (flat_e[..., None] == torch.arange(e, device=xg.device)).to(torch.int32)
-        pos = torch.gather(torch.cumsum(onehot, dim=1), 2, flat_e[..., None])[..., 0] - 1
-        keep = pos < capacity
-    if ROUTING_LOG is not None:
-        ROUTING_LOG.append((router, topi, keep, torch.is_grad_enabled()))
-    return _Routing(topw, flat_e, pos, keep, capacity)
+        # slot position of each (token, choice) in its expert's queue, within
+        # its group: the exclusive count of earlier choices of that expert in
+        # the flat token-major (S * k) order
+        with torch.no_grad():
+            flat_e = topi.reshape(g, s * k)
+            onehot = (flat_e[..., None] == torch.arange(e, device=xg.device)).to(torch.int32)
+            pos = torch.gather(torch.cumsum(onehot, dim=1), 2, flat_e[..., None])[..., 0] - 1
+            keep = pos < capacity
+        if ROUTING_LOG is not None:
+            ROUTING_LOG.append((router, topi, keep, torch.is_grad_enabled()))
+        return _Routing(topw, flat_e, pos, keep, capacity)
 
 
 def _route_groups(p, cfg: ModelConfig, xg: torch.Tensor, routing: Optional[_Routing] = None,
@@ -150,34 +152,37 @@ def _route_groups(p, cfg: ModelConfig, xg: torch.Tensor, routing: Optional[_Rout
     topw, flat_e, pos, keep, capacity = routing or _route(p["router"], cfg, xg)
     e_local = p["w_gate"].shape[0]
     dev = xg.device
-    with torch.no_grad():
-        off = rank * e_local
-        keep = keep & (flat_e >= off) & (flat_e < off + e_local)
-        flat_e = flat_e - off
-        # expert-major slots over every group: (expert, group, position);
-        # dropped choices go to the overflow index n_slots (a zero row)
-        n_slots, n_choice = e_local * g * capacity, g * s * k
-        grp = torch.arange(g, device=dev)[:, None]
-        slot = torch.where(keep, flat_e * (g * capacity) + grp * capacity + pos,
-                           n_slots).reshape(-1)                           # (G*S*k,)
-        # the inverse: the (token, choice) in each slot, n_choice where empty
-        choice = torch.full((n_slots + 1,), n_choice, dtype=torch.long, device=dev)
-        choice.scatter_(0, slot, torch.arange(n_choice, device=dev))
-        choice = choice[:n_slots]
-        token = torch.where(choice < n_choice, choice // k, g * s)
+    with span("moe.dispatch"):
+        with torch.no_grad():
+            off = rank * e_local
+            keep = keep & (flat_e >= off) & (flat_e < off + e_local)
+            flat_e = flat_e - off
+            # expert-major slots over every group: (expert, group, position);
+            # dropped choices go to the overflow index n_slots (a zero row)
+            n_slots, n_choice = e_local * g * capacity, g * s * k
+            grp = torch.arange(g, device=dev)[:, None]
+            slot = torch.where(keep, flat_e * (g * capacity) + grp * capacity + pos,
+                               n_slots).reshape(-1)                       # (G*S*k,)
+            # the inverse: the (token, choice) in each slot, n_choice where empty
+            choice = torch.full((n_slots + 1,), n_choice, dtype=torch.long, device=dev)
+            choice.scatter_(0, slot, torch.arange(n_choice, device=dev))
+            choice = choice[:n_slots]
+            token = torch.where(choice < n_choice, choice // k, g * s)
 
-    # expert_in[e, (g, c)] = the group's token in that slot (zeros where empty)
-    expert_in = _Gather.apply(xg.reshape(g * s, d), token, slot, k)
-    expert_in = expert_in.reshape(e_local, g * capacity, d)
-    h = swiglu(torch.bmm(expert_in, p["w_gate"].to(xg.dtype)),
-               torch.bmm(expert_in, p["w_up"].to(xg.dtype)))
-    expert_out = torch.bmm(h, p["w_down"].to(xg.dtype)).reshape(n_slots, d)
+        # expert_in[e, (g, c)] = the group's token in that slot (zeros where empty)
+        expert_in = _Gather.apply(xg.reshape(g * s, d), token, slot, k)
+        expert_in = expert_in.reshape(e_local, g * capacity, d)
+    with span("moe.experts"):
+        h = swiglu(torch.bmm(expert_in, p["w_gate"].to(xg.dtype)),
+                   torch.bmm(expert_in, p["w_up"].to(xg.dtype)))
+        expert_out = torch.bmm(h, p["w_down"].to(xg.dtype)).reshape(n_slots, d)
 
-    # combine: out[t] = sum_j w[t, j] * expert_out[slot(t, j)], over the k
-    # choices in order; a dropped choice reads the zero row and weighs 0
-    per_choice = _Gather.apply(expert_out, slot, choice, 1).reshape(g, s, k, d)
-    w = (topw * keep.reshape(g, s, k).to(topw.dtype)).to(xg.dtype)
-    return (per_choice * w[..., None]).sum(2)
+    with span("moe.combine"):
+        # combine: out[t] = sum_j w[t, j] * expert_out[slot(t, j)], over the k
+        # choices in order; a dropped choice reads the zero row and weighs 0
+        per_choice = _Gather.apply(expert_out, slot, choice, 1).reshape(g, s, k, d)
+        w = (topw * keep.reshape(g, s, k).to(topw.dtype)).to(xg.dtype)
+        return (per_choice * w[..., None]).sum(2)
 
 
 def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -204,7 +209,8 @@ def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     for r, p_r, x_r, xg in zip(group.ranks, ps, xs, xgs):
         out = _route_groups(p_r, cfg, xg, routing, r).reshape(b, s, d)
         if cfg.n_shared_experts:
-            out = out + dense_ffn(p_r["shared"], x_r)
+            with span("moe.shared"):
+                out = out + dense_ffn(p_r["shared"], x_r)
         parts.append(out)
     return group.all_reduce(parts)[0]
 
