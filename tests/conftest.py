@@ -1,3 +1,4 @@
+import contextlib
 import os
 import signal
 import sys
@@ -5,6 +6,8 @@ import threading
 from pathlib import Path
 
 import pytest
+
+from _order import FILE_SECONDS, by_file, file_of
 
 # tests see ONE CPU device (dry-run device forcing must stay out of here)
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
@@ -19,6 +22,37 @@ if "--xla_force_host_platform_device_count" in _flags:
     os.environ["XLA_FLAGS"] = " ".join(
         f for f in _flags.split()
         if not f.startswith("--xla_force_host_platform_device_count"))
+
+# ---------------------------------------------------------------------------
+# Under `-n N --dist loadfile` the workers take whole files in the order they
+# collected them, longest first (tests/_order.py).  xdist's own sort by test
+# count is turned off so that it cannot undo that order.  A run without
+# workers keeps collection order.
+#
+# The listed files set the run's length, and they slow down when they share
+# the CPU with every other worker: the executor file's tests took 1405 s in
+# place of 1222 s when it started with the run (8-core host, 6 workers).  So
+# a worker lowers its priority, and its subprocesses', once it runs a test of
+# any other file: the listed files keep their cores, the rest fill the others.
+# ---------------------------------------------------------------------------
+def pytest_configure(config):
+    if hasattr(config.option, "loadscopereorder"):
+        config.option.loadscopereorder = False
+
+
+def pytest_collection_modifyitems(config, items):
+    if hasattr(config, "workerinput"):
+        items[:] = by_file(items)
+
+
+def pytest_runtest_setup(item):
+    if (hasattr(item.config, "workerinput")
+            and file_of(item.nodeid) not in FILE_SECONDS):
+        # niceness is per thread on Linux: lower every thread of the worker
+        for tid in os.listdir("/proc/self/task"):
+            with contextlib.suppress(ProcessLookupError):  # thread ended
+                os.setpriority(os.PRIO_PROCESS, int(tid), 19)
+
 
 # ---------------------------------------------------------------------------
 # Per-test hard timeout ("timeout" ini key, see pyproject.toml).  When the
